@@ -13,18 +13,32 @@ line):
    size classes stage 2b produces (plus one 60 Kbp chunk problem on the
    direct and the tiled route): 0 mismatching direction bytes on every
    written lane, 0 mismatching checkpoint words, packed-op bytes and walker
-   states, and CIGARs equal to the NumPy reference on a subset;
-4. the main path, ``run_pipeline`` on two 20 Mbp genomes: ``bench.py``'s
-   end-to-end spec (at the aligner's default batch floor and at 2^18
-   cells) and a mosaic-SD genome whose SDs carry multi-Kbp diverged cores
-   (default floor), so the wide and giant gap-DP classes occur.  The card
-   route (aligner on ``cuda``) must give the same aligned.bed and final.bed
-   bytes as the host route (every gap DP on the native scalar DP, the
-   reference package's CPU route), and every kernel must have been
-   launched by the card runs;
-5. with ``--spread N``: N timed runs per route and genome, routes
+   states, and CIGARs equal to the NumPy reference on a subset; every fill
+   variant against the plain fill on the variant harness's golden problem
+   and at (1024,1024,64), then timed there and at a card-filling batch;
+4. the calibration path, through its entry points: the variant harness
+   (``sedef_tpu_torch.tools.kbench``) and ``devcal`` (dispatch cost of one
+   launch group, the host's DP rate, the derived batch floors, and the
+   measured device/host crossover over batch size), one JSON line;
+5. the main path, ``run_pipeline`` on two 20 Mbp genomes at the calibrated
+   floors: ``bench.py``'s end-to-end spec (also at 2^18 cells) and a
+   mosaic-SD genome whose SDs carry multi-Kbp diverged cores, so the wide
+   and giant gap-DP classes occur.  The card route (aligner on ``cuda``)
+   must give the same aligned.bed and final.bed bytes as the host route
+   (every gap DP on the native scalar DP, the reference package's CPU
+   route), and kernels 1-9 must have been launched by the card runs, the
+   variant kernel by the calibration path;
+6. with ``--spread N``: N timed runs per route and genome, routes
    alternated; with ``--profile``: a ``torch.profiler`` trace of each card
    run (device busy time, kernels, copies).
+
+Each kernel's bound in the summary is the larger of its integer operations
+over the card's int32 peak (SMs x 64 lanes x the SM clock ``nvidia-smi``
+reports as its maximum) and the bytes it must move over the HBM rate, for
+the work this run's inputs need: 29 operations per band cell of a fill (23
+for the checkpoint pass, which keeps no direction flags), 43 per consumed
+row of a traceback.  No single PyTorch call computes an affine-gap
+direction matrix or its traceback, so ``library_ms`` is null throughout.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -42,6 +56,7 @@ import time
 
 SRC_FILL = "sedef_tpu_torch/csrc/wavefront_fill.cu"
 SRC_TRACE = "sedef_tpu_torch/csrc/traceback_pack.cu"
+SRC_VARIANTS = "sedef_tpu_torch/csrc/wavefront_fill_variants.cu"
 REF = "sedef_tpu/ops/wavefront.py"
 # kernel wrapper -> (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -54,7 +69,9 @@ KERNELS = {
     "tile_checkpoint_streamed": (SRC_FILL, f"{REF}:1165"),
     "tile_refill_streamed": (SRC_FILL, f"{REF}:1240"),
     "tile_backtrack_streamed": (SRC_TRACE, f"{REF}:1314"),
+    "wavefront_fill_variant": (SRC_VARIANTS, "tools/kbench.py:25"),
 }
+MAIN_PATH_KERNELS = [k for k in KERNELS if k != "wavefront_fill_variant"]
 
 # (S_q, S_t, B) of the direct route: the classes of stage 2b's gap DPs and
 # side extensions, a dp_indel-sized class, one 60 Kbp chunk problem
@@ -70,41 +87,96 @@ NUMPY_CHECK_MAX = 10240  # CIGARs vs NumPy only up to this class width
 NUMPY_CHECK_N = 4
 # shape whose times go into the kernel summary, per kernel
 SUMMARY_AT = {"wavefront_fill": (1024, 1024, 64),
+              "wavefront_fill_variant": (1024, 1024, 64),
               "backtrack_pack": (1024, 1024, 64),
               "wavefront_fill_streamed": (2048, 2048, 50)}
 for _k in ("tile_checkpoint", "tile_refill", "tile_backtrack"):
     SUMMARY_AT[_k] = (10240, 10240, 4)
     SUMMARY_AT[_k + "_streamed"] = (10240, 10240, 16)
 
+# integer operations per band cell of a fill (6 score, 17 recurrence, 6
+# direction flags: csrc/wavefront_fill.cu's cell), of the checkpoint pass
+# (no direction flags), and per consumed row of a traceback
+# (csrc/traceback_pack.cu's walk loop)
+OPS_FILL, OPS_CKPT, OPS_WALK = 29, 23, 43
+INT32_LANES_PER_SM = 64
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
+PEAKS = {}  # "int32_ops_per_s", set by phase_device
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take for ``ops`` int32 operations
+    and ``nbytes`` bytes moved, and which of the two sets it."""
+    t_ops = ops / PEAKS["int32_ops_per_s"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def band_cells(S_q: int, S_t: int, K: int, r0: int, r1: int) -> int:
+    """Band cells of stream rows [r0, r1) of one K-problem stream."""
+    import numpy as np
+    r = np.arange(r0, r1, dtype=np.int64)
+    width = np.minimum(r, S_t - 1) - np.maximum(0, r - K * S_q + 1) + 1
+    return int(width.clip(min=0).sum())
+
+
+def consumed_rows(packed) -> int:
+    """Anti-diagonal rows the walkers consumed: 2-bit fields that are not
+    3 in a packed-op tensor."""
+    o = packed.int()
+    return sum(int((((o >> sh) & 3) != 3).sum()) for sh in (0, 2, 4, 6))
 
 
 def phase_device():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()
-    log(smi[0])
+    def smi(query, *fmt):
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}",
+             "--format=csv,noheader" + "".join(fmt)], capture_output=True,
+            text=True, check=True).stdout.strip().splitlines()[0]
+
+    log(smi("name,power.limit"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(smi("clocks.max.sm", ",nounits"))
+    PEAKS["int32_ops_per_s"] = sms * INT32_LANES_PER_SM * mhz * 1e6
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
-        f"count {torch.cuda.device_count()}")
+        f"count {torch.cuda.device_count()}; {sms} SMs x "
+        f"{INT32_LANES_PER_SM} int32 lanes x {mhz:.0f} MHz = "
+        f"{PEAKS['int32_ops_per_s'] / 1e12:.3f} Top/s int32 peak, HBM "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
 
 
 def phase_build():
     from sedef_tpu_torch.native.build import build_cuda, build_native
     from sedef_tpu_torch.ops import wavefront as wf
+    # g++ and the nvcc compiles (one per source) run side by side
+    from concurrent.futures import ThreadPoolExecutor
+    took = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        took[name] = time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    build_native(force=True)
-    t1 = time.perf_counter()
-    build_cuda(verbose=True, force=True)
-    t2 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(timed, "native",
+                            lambda: build_native(force=True)),
+                pool.submit(timed, "cuda",
+                            lambda: build_cuda(verbose=True, force=True))]
+        for job in jobs:
+            job.result()
     wf._kernels()
-    log(f"[build] native {t1 - t0:.2f}s cuda {t2 - t1:.2f}s")
+    log(f"[build] native {took['native']:.2f}s cuda {took['cuda']:.2f}s, "
+        f"together {time.perf_counter() - t0:.2f}s")
 
 
 def _random_class(rng, S_q, S_t, B):
@@ -152,11 +224,14 @@ def _require(bad: int, what: str) -> None:
 
 class _Timer:
     """CUDA-event time of kernel launches (``kernel``) and host time of
-    plain-version calls ending in a synchronize (``plain``), summed."""
+    plain-version calls ending in a synchronize (``plain``): their sum
+    (``ms``), mean, and median (``typical``: repeated launches of one
+    shape, where one slow launch should not set the number)."""
 
     def __init__(self):
         self.ms = 0.0
         self.n = 0
+        self.samples = []
 
     def kernel(self, fn):
         import torch
@@ -166,8 +241,7 @@ class _Timer:
         out = fn()
         end.record()
         end.synchronize()
-        self.ms += start.elapsed_time(end)
-        self.n += 1
+        self._add(start.elapsed_time(end))
         return out
 
     def plain(self, fn):
@@ -176,13 +250,22 @@ class _Timer:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        self.ms += (time.perf_counter() - t0) * 1e3
-        self.n += 1
+        self._add((time.perf_counter() - t0) * 1e3)
         return out
+
+    def _add(self, ms: float) -> None:
+        self.ms += ms
+        self.n += 1
+        self.samples.append(ms)
 
     @property
     def mean(self) -> float:
         return self.ms / max(self.n, 1)
+
+    @property
+    def typical(self) -> float:
+        import statistics
+        return statistics.median(self.samples)
 
 
 def _check_cigars(wf, qs, ts, ql, tl, ops, n, label):
@@ -208,13 +291,16 @@ class KernelPhase:
         self.np, self.torch, self.wf = np, torch, wf
         self.dev = torch.device("cuda", 0)
         self.rng = np.random.default_rng(2024)
-        self.summary = {name: {"max_abs_err": 0} for name in KERNELS}
+        self.summary = {name: {"max_abs_err": 0, "library_ms": None}
+                        for name in KERNELS}
 
-    def _record(self, name, shape, worst, ms, plain_ms):
+    def _record(self, name, shape, worst, ms, plain_ms, ops, nbytes):
+        """``ops`` / ``nbytes``: what one launch must do on these inputs
+        (integer operations, bytes moved), for the bound."""
         rec = self.summary[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], worst)
         if SUMMARY_AT[name] == shape:
-            rec.update(ms=ms, plain_ms=plain_ms,
+            rec.update(ms=ms, plain_ms=plain_ms, **bound(ops, nbytes),
                        at="S_q={},S_t={},B={}".format(*shape))
 
     def _inputs(self, S_q, S_t, B):
@@ -231,6 +317,8 @@ class KernelPhase:
         for shape in SHAPES:
             self.direct(*shape)
             torch.cuda.empty_cache()
+        self.variants()
+        torch.cuda.empty_cache()
         for shape in STREAM_SHAPES:
             self.streamed(*shape)
             torch.cuda.empty_cache()
@@ -243,7 +331,7 @@ class KernelPhase:
         wf, np = self.wf, self.np
         (qs, ts, ql, tl), (q, t, qlt, tlt) = self._inputs(S_q, S_t, B)
         fk, fp, tk, tp = _Timer(), _Timer(), _Timer(), _Timer()
-        reps = 3 if S_t <= 2048 else 1
+        reps = 9 if S_t <= 2048 else 1
         wf.wavefront_fill(q, t)  # the first, cold launch is not timed
         for _ in range(reps):
             p_k = fk.kernel(lambda: wf.wavefront_fill(q, t))
@@ -261,14 +349,17 @@ class KernelPhase:
         _check_cigars(wf, qs, ts, ql, tl, o_k.cpu().numpy(), n_np,
                       f"({S_q},{S_t})")
         cells = int((ql.astype(np.int64) * tl).sum())
-        log(f"[kernels] direct ({S_q},{S_t}) B={B}: fill {fk.mean:.3f} ms "
-            f"(plain {fp.mean:.1f} ms, {cells / fk.mean / 1e6:.2f} GCUPS), "
-            f"traceback {tk.mean:.3f} ms (plain {tp.mean:.1f} ms); 0 byte "
-            f"mismatches; {n_np} CIGARs = NumPy")
-        self._record("wavefront_fill", (S_q, S_t, B), worst, fk.mean,
-                     fp.mean)
-        self._record("backtrack_pack", (S_q, S_t, B), trace_err, tk.mean,
-                     tp.mean)
+        log(f"[kernels] direct ({S_q},{S_t}) B={B}: fill {fk.typical:.3f} ms "
+            f"(plain {fp.mean:.1f} ms, {cells / fk.typical / 1e6:.2f} GCUPS)"
+            f", traceback {tk.typical:.3f} ms (plain {tp.mean:.1f} ms); 0 "
+            f"byte mismatches; {n_np} CIGARs = NumPy")
+        steps = consumed_rows(o_k)
+        self._record("wavefront_fill", (S_q, S_t, B), worst, fk.typical,
+                     fp.mean, OPS_FILL * B * S_q * S_t,
+                     B * (S_q + S_t) + B * S_q * S_t)
+        self._record("backtrack_pack", (S_q, S_t, B), trace_err, tk.typical,
+                     tp.mean, OPS_WALK * steps,
+                     steps + o_k.numel() + 8 * B)
         if (S_q, S_t, B) == SUMMARY_AT["wavefront_fill"]:
             # the same problems on the native scalar DP (host CPU), the
             # route stragglers take
@@ -289,7 +380,7 @@ class KernelPhase:
         fk, fp, tk, tp, dk = (_Timer() for _ in range(5))
         wf.wavefront_fill_streamed(q, t, K)
         wf.wavefront_fill(q, t)
-        for _ in range(3):
+        for _ in range(5):
             p_k = fk.kernel(lambda: wf.wavefront_fill_streamed(q, t, K))
             dk.kernel(lambda: wf.wavefront_fill(q, t))
         p_p = fp.plain(lambda: wf.wavefront_fill_streamed_torch(q, t, K))
@@ -308,13 +399,64 @@ class KernelPhase:
                       f"streamed ({S_q},{S_t})")
         cells = int((ql.astype(np.int64) * tl).sum())
         log(f"[kernels] streamed ({S_q},{S_t}) B={B} K={K}: fill "
-            f"{fk.mean:.3f} ms (plain {fp.mean:.1f} ms, "
-            f"{cells / fk.mean / 1e6:.2f} GCUPS; direct fill of the same "
-            f"batch {dk.mean:.3f} ms), traceback {tk.mean:.3f} ms (plain "
-            f"{tp.mean:.1f} ms); 0 byte mismatches, ops = direct route's; "
+            f"{fk.typical:.3f} ms (plain {fp.mean:.1f} ms, "
+            f"{cells / fk.typical / 1e6:.2f} GCUPS; direct fill of the same "
+            f"batch {dk.typical:.3f} ms), traceback {tk.typical:.3f} ms "
+            f"(plain {tp.mean:.1f} ms); 0 byte mismatches, ops = direct "
+            f"route's; "
             f"{NUMPY_CHECK_N} CIGARs = NumPy")
         self._record("wavefront_fill_streamed", (S_q, S_t, B), worst,
-                     fk.mean, fp.mean)
+                     fk.typical, fp.mean, OPS_FILL * B * S_q * S_t,
+                     B * (S_q + S_t) + B * S_q * S_t)
+
+    def variants(self):
+        """Every fill variant against the plain fill (0 mismatching band
+        bytes) on the harness's golden problem and at (1024,1024,64), then
+        timed at (1024,1024,64) and (1024,1024,1056) beside kernel 1."""
+        wf, torch = self.wf, self.torch
+        from sedef_tpu_torch.tools import kbench
+        qseq, tgt, _, _ = kbench.golden_problem()
+        shape = SUMMARY_AT["wavefront_fill_variant"]
+        S_q, S_t, B = shape
+        _, (q, t, _, _) = self._inputs(*shape)
+        plain = _Timer()
+        cases = [(128, 128, torch.from_numpy(qseq).to(self.dev),
+                  torch.from_numpy(tgt).to(self.dev), _Timer()),
+                 (S_q, S_t, q, t, plain)]
+        for cq, ct, qq, tt, timer in cases:
+            want = timer.plain(lambda: wf.wavefront_fill_torch(qq, tt))
+            for v in wf.FILL_VARIANTS:
+                got = wf.wavefront_fill_variant(v, qq, tt)
+                torch.cuda.synchronize()
+                _require(kbench.band_mismatches(got, want, cq, ct),
+                         f"fill variant {v} ({cq},{ct})")
+                del got
+            del want
+        for v in wf.FILL_VARIANTS:
+            if not kbench.check_correct(v, self.dev):
+                raise AssertionError(f"fill variant {v}: golden check "
+                                     f"failed")
+        small = kbench.time_variants(wf.FILL_VARIANTS, self.dev, B, S_q)
+        full = kbench.time_variants(wf.FILL_VARIANTS, self.dev,
+                                    kbench.FULL_B, S_q)
+        bounds = [bound(OPS_FILL * n * S_q * S_t,
+                        n * (S_q + S_t) + n * S_q * S_t)
+                  for n in (B, kbench.FULL_B)]
+        log(f"[variants] bound ({S_q},{S_t},{B}): "
+            f"{bounds[0]['bound_ms']:.3f} ms; ({S_q},{S_t},{kbench.FULL_B})"
+            f": {bounds[1]['bound_ms']:.3f} ms, by {bounds[1]['bound_by']}")
+        for v in ("wavefront_fill",) + wf.FILL_VARIANTS:
+            log(f"[variants] {v:14s} ({S_q},{S_t},{B}): {small[v]:.3f} ms "
+                f"{B * S_q * S_t / small[v] / 1e6:.2f} GCUPS; "
+                f"({S_q},{S_t},{kbench.FULL_B}): {full[v]:.3f} ms "
+                f"{kbench.FULL_B * S_q * S_t / full[v] / 1e6:.2f} GCUPS; "
+                f"0 byte mismatches at both check shapes")
+        best = min(wf.FILL_VARIANTS, key=lambda v: small[v])
+        self._record("wavefront_fill_variant", shape, 0, small[best],
+                     plain.mean, OPS_FILL * B * S_q * S_t,
+                     B * (S_q + S_t) + B * S_q * S_t)
+        self.summary["wavefront_fill_variant"].update(
+            variant=best, variants_ms=small, variants_ms_full_card=full)
 
     def tiled(self, S_q, S_t, B):
         wf, torch = self.wf, self.torch
@@ -384,13 +526,109 @@ class KernelPhase:
             f"{parts}; route total {sum(timers[n][0].ms for n in names):.3f}"
             f" ms; 0 mismatches, ops = direct route's; {n_np} CIGARs = "
             f"NumPy")
-        for n, worst in zip(names, (ck_worst, fill_worst, 0)):
-            self._record(n, (S_q, S_t, B), worst, timers[n][0].mean,
-                         timers[n][1].mean)
+        # work per launch: the checkpoint pass does the whole fill once;
+        # a refill or a walk does, on average, one tile's share of it
+        n = B // K
+        n_tiles = -(-n_rows // tile)
+        cells = n * K * S_q * S_t
+        codes = B * (S_q + S_t)
+        steps = consumed_rows(out_k)
+        work = ((OPS_CKPT * cells, codes + 16 * S_t * n * n_tiles),
+                (OPS_FILL * cells / n_tiles,
+                 16 * S_t * n + (codes + cells) / n_tiles),
+                (OPS_WALK * steps / n_tiles,
+                 (steps + out_k.numel()) / n_tiles + 32 * B))
+        for nm, worst, (ops, nbytes) in zip(names, (ck_worst, fill_worst, 0),
+                                            work):
+            self._record(nm, (S_q, S_t, B), worst, timers[nm][0].mean,
+                         timers[nm][1].mean, ops, nbytes)
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the main path
+# Phase 4: the calibration path
+# ---------------------------------------------------------------------------
+
+def _zero_counts():
+    from sedef_tpu_torch.ops import wavefront as wf
+    for w in wf.KERNEL_WRAPPERS:
+        w.launches = 0
+
+
+def _read_counts() -> dict:
+    from sedef_tpu_torch.ops import wavefront as wf
+    return {w.__name__: w.launches for w in wf.KERNEL_WRAPPERS}
+
+
+def _floor_crossover(al):
+    """One launch group on the card against the native scalar DP on the
+    host, for n problems of the smallest class: [(n, cells, card ms, host
+    ms)], medians of 5.  The batch floor the calibration derives should
+    lie where the two cross."""
+    import statistics
+
+    import numpy as np
+
+    from sedef_tpu_torch.native import lib as nlib
+    rng = np.random.default_rng(5)
+    rows = []
+    for n in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512):
+        pairs = [(rng.integers(0, 4, int(a)).astype(np.int8),
+                  rng.integers(0, 4, int(b)).astype(np.int8))
+                 for a, b in rng.integers(96, 129, (n, 2))]
+        host_pairs = [(q.astype(np.uint8), t.astype(np.uint8))
+                      for q, t in pairs]
+        part = list(range(n))
+        card, host = [], []
+        al._solve(pairs, part, 128, 128, 1, None)
+        for _ in range(5):
+            t0 = time.perf_counter()
+            al._solve(pairs, part, 128, 128, 1, None)
+            card.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            nlib.align_batch(host_pairs, 5, -4, 40, 1)
+            host.append((time.perf_counter() - t0) * 1e3)
+        rows.append((n, sum(len(q) * len(t) for q, t in pairs),
+                     statistics.median(card), statistics.median(host)))
+    return rows
+
+
+def phase_calibration():
+    """The variant harness and the dispatch calibration, through their
+    entry points; returns the launches they made, per wrapper."""
+    from sedef_tpu_torch import devcal
+    from sedef_tpu_torch.ops import wavefront as wf
+    from sedef_tpu_torch.tools import kbench
+    _zero_counts()
+    if kbench.main(["--device", "cuda"]):
+        raise AssertionError("the variant harness reported a wrong variant")
+    al = wf.WavefrontAligner(device="cuda")
+    applied = devcal.apply(al)
+    counts = _read_counts()
+    cal = devcal.get()
+    if not (cal.measured and applied["calibrated"]
+            and al.DEVICE_BATCH_MIN_CELLS == cal.device_batch_min_cells
+            and al.DEVICE_BATCH_MIN == cal.device_batch_min):
+        raise AssertionError(f"devcal did not install measured floors: "
+                             f"{applied}")
+    cross = _floor_crossover(al)
+    first = next((n for n, _, card, host in cross if card < host), None)
+    log("[devcal] " + json.dumps({
+        **applied, "floors": list(devcal.CARD_FLOORS),
+        "frozen": [wf.FROZEN_BATCH_MIN_CELLS, wf.FROZEN_BATCH_MIN],
+        "crossover_class128": [
+            {"problems": n, "cells": c, "card_ms": round(a, 4),
+             "host_ms": round(b, 4)} for n, c, a, b in cross],
+        "card_faster_from_problems": first}))
+    for name in ("wavefront_fill_variant", "wavefront_fill",
+                 "backtrack_pack", "wavefront_fill_streamed"):
+        if counts[name] <= 0:
+            raise AssertionError(f"calibration path launched no {name}")
+    log(f"[calibration] launches {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the main path
 # ---------------------------------------------------------------------------
 
 GENOME_BP = 20_000_000
@@ -403,10 +641,9 @@ E2E_SPEC = dict(n_sds=20, seed=7, n_chroms=4, repeat_families=20,
 # mosaic_genome)
 MOSAIC_SPEC = dict(n_sds=30, seed=7, n_chroms=4, repeat_families=20,
                    repeat_copies=40, sd_min=120_000, sd_max=200_000)
-# the card route's bulk-batch floor besides the aligner's default: 2^18
-# cells is a batch the kernels clear in well under a millisecond while
-# the scalar DP needs several; the card's own breakeven is not measured
-# yet (ROADMAP: devcal)
+# a fixed bulk-batch floor beside the calibrated one (set on the aligner
+# instance, which ``devcal.apply`` then leaves alone), so that runs on
+# different cards put the same problems on the card
 LOW_FLOOR = 1 << 18
 
 
@@ -460,11 +697,12 @@ def _genomes(tmp):
     return out
 
 
-# (run name, genome, aligner device, bulk-batch floor or None = default);
-# the card runs come first: the launch counts of phase 4 are theirs
-CARD_RUNS = (("e2e-20M card, default floor", "e2e-20M", None),
+# (run name, genome, bulk-batch floor in cells or None = the calibrated
+# one, which ``run_pipeline`` installs); the card runs come first: the
+# main path's launch counts are theirs
+CARD_RUNS = (("e2e-20M card, calibrated floor", "e2e-20M", None),
              ("e2e-20M card, floor 2^18", "e2e-20M", LOW_FLOOR),
-             ("mosaic-20M card, default floor", "mosaic-20M", None))
+             ("mosaic-20M card, calibrated floor", "mosaic-20M", None))
 
 
 def _aligner(route: str, floor):
@@ -496,8 +734,7 @@ def _run(fa, out_dir, al):
 def phase_main_path(genomes, tmp):
     from sedef_tpu_torch.models.genome_sim import recall_of
     from sedef_tpu_torch.ops import wavefront as wf
-    for w in wf.KERNEL_WRAPPERS:
-        w.launches = 0
+    _zero_counts()
     results = {}
     per_run = []
     for run, genome, floor in CARD_RUNS:
@@ -508,7 +745,7 @@ def phase_main_path(genomes, tmp):
         per_run.append((run, {w.__name__: w.launches - b for w, b in
                               zip(wf.KERNEL_WRAPPERS, before)
                               if w.launches > b}))
-    launches = {w.__name__: w.launches for w in wf.KERNEL_WRAPPERS}
+    launches = _read_counts()
     host = {}
     for genome, (fa, _) in genomes.items():
         host[genome] = _run(fa, os.path.join(tmp, "host"),
@@ -532,7 +769,7 @@ def phase_main_path(genomes, tmp):
             f"groups, launches {counts}; aligned.bed "
             f"{len(out['aligned'].splitlines())} rows and final.bed = host "
             f"route's; {len(rows)} final SDs, recall {rec}/{len(planted)}")
-    missing = [n for n in KERNELS if launches[n] <= 0]
+    missing = [n for n in MAIN_PATH_KERNELS if launches[n] <= 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
     return launches
@@ -558,7 +795,7 @@ def phase_spread(genomes, tmp, n):
                                  f"spread runs")
         for (route, floor), ws in walls.items():
             log(f"[spread] {genome} {route} floor "
-                f"{floor or 'default'}: runs "
+                f"{floor or 'calibrated'}: runs "
                 f"{', '.join(f'{w:.4f}' for w in ws)} s, median "
                 f"{statistics.median(ws):.4f} s")
 
@@ -597,6 +834,7 @@ def main() -> int:
     import torch
     phase_build()
     summary = KernelPhase().run()
+    calibration = phase_calibration()
     with tempfile.TemporaryDirectory() as tmp:
         genomes = _genomes(tmp)
         launches = phase_main_path(genomes, tmp)
@@ -604,8 +842,13 @@ def main() -> int:
             phase_spread(genomes, tmp, args.spread)
         if args.profile:
             phase_profile(genomes, tmp)
+    # launches: the main path's for kernels 1-9, the calibration path's
+    # for the variant kernel (the path that runs it)
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": ref, "launches": launches[name],
+                "replaces": ref,
+                "launches": (launches if name in MAIN_PATH_KERNELS
+                             else calibration)[name],
+                "calibration_launches": calibration[name],
                 **summary[name]} for name, (src, ref) in KERNELS.items()]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

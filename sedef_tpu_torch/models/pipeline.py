@@ -762,6 +762,9 @@ def run_pipeline(fasta_path: str, out_dir: str, cfg: Config = DEFAULT,
     if aligner is None:
         from ..ops.cigar import default_aligner
         aligner = default_aligner()
+    # the card's measured batch floors (a cpu aligner is left alone)
+    from .. import devcal
+    _eprn(f"[devcal] {devcal.apply(aligner)}", quiet)
     device_align = getattr(aligner, "base", aligner).device.type == "cuda"
     align_jobs = max(jobs, 8 if device_align else (os.cpu_count() or 2))
     if (not seeds_done and not os.environ.get("SEDEF_NO_OVERLAP", "")

@@ -3,11 +3,13 @@
 Builds the port's two shared libraries into ``sedef_tpu_torch/_build/``:
 
 * ``libsedef_native.so`` — the C++ host runtime, compiled with ``g++``
-  from ``sedef_tpu/native/native.cc`` where it lies (read, not copied);
+  from the package's own ``native/native.cc`` (a copy of the reference
+  package's file, kept equal by a test while both exist);
 * ``libsedef_kernels.so`` — the hand-written CUDA kernels of
   ``sedef_tpu_torch/csrc/*.cu``, compiled with ``nvcc`` for ``sm_90a``
   behind a plain C interface (bound with ``ctypes``; no PyTorch headers,
-  so the build takes seconds).
+  so the build takes seconds): one ``nvcc -c`` per source, all started
+  together, then one link.
 
 Each output is rebuilt when it is missing or older than its sources, and
 written through a temporary file and an atomic rename, so concurrent
@@ -27,7 +29,7 @@ import time
 
 PKG = pathlib.Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "_build"
-NATIVE_SRC = PKG.parent / "sedef_tpu" / "native" / "native.cc"
+NATIVE_SRC = PKG / "native" / "native.cc"
 CSRC = PKG / "csrc"
 NATIVE_SO = BUILD_DIR / "libsedef_native.so"
 KERNELS_SO = BUILD_DIR / "libsedef_kernels.so"
@@ -62,7 +64,7 @@ def _compile(cmd: list[str], out: pathlib.Path, verbose: bool) -> float:
 
 def build_native(verbose: bool = False, force: bool = False
                  ) -> pathlib.Path:
-    """The host runtime, built from the reference package's source."""
+    """The host runtime, built from ``native/native.cc``."""
     if not NATIVE_SRC.exists():
         raise FileNotFoundError(f"native source missing: {NATIVE_SRC}")
     if force or _stale(NATIVE_SO, [NATIVE_SRC]):
@@ -83,19 +85,51 @@ def nvcc_path() -> str:
                             "kernels of sedef_tpu_torch/csrc)")
 
 
+def cuda_sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def build_cuda(verbose: bool = False, force: bool = False
                ) -> pathlib.Path:
-    """The CUDA kernels: ``nvcc -gencode arch=compute_90a,code=sm_90a``.
-    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills per
-    kernel) and echoes the compiler's output."""
-    srcs = sorted(CSRC.glob("*.cu"))
+    """The CUDA kernels: ``nvcc -gencode arch=compute_90a,code=sm_90a``,
+    one compile per source in parallel, then one link.  ``verbose`` adds
+    ``-Xptxas -v`` (registers, shared memory, spills per kernel) and
+    echoes the compiler's output."""
+    srcs = cuda_sources()
     deps = srcs + sorted(CSRC.glob("*.cuh"))
-    if force or _stale(KERNELS_SO, deps):
-        cmd = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
-        if verbose:
-            cmd += ["-Xptxas", "-v"]
-        _compile(cmd + [str(s) for s in srcs], KERNELS_SO, verbose)
+    if not (force or _stale(KERNELS_SO, deps)):
+        return KERNELS_SO
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-Xcompiler", "-fPIC"]
+    if verbose:
+        flags += ["-Xptxas", "-v"]
+    objs = [BUILD_DIR / f".{s.stem}.{os.getpid()}.o" for s in srcs]
+    try:
+        procs = []
+        for src, obj in zip(srcs, objs):
+            cmd = [nvcc, *flags, "-c", str(src), "-o", str(obj)]
+            if verbose:
+                print(" ".join(cmd), file=sys.stderr)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = None
+        for cmd, proc in procs:
+            out, err = proc.communicate()
+            if verbose or proc.returncode:
+                sys.stderr.write(out + err)
+            if proc.returncode and failed is None:
+                failed = subprocess.CalledProcessError(proc.returncode, cmd,
+                                                       out, err)
+        if failed is not None:
+            raise failed
+        _compile([nvcc, "-shared", *[str(o) for o in objs]], KERNELS_SO,
+                 verbose)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return KERNELS_SO
 
 

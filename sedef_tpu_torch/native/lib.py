@@ -5,7 +5,7 @@ ctypes loader for the C++ native runtime (libsedef_native.so).
 The native library accelerates sequential host-side hot loops (winnowing
 scan, stage-1 search, chaining DP, the scalar wavefront DP).  Every entry
 point has a pure NumPy/Python fallback; ``has`` reports availability.
-The library is compiled from ``sedef_tpu/native/native.cc`` into
+The library is compiled from the package's own ``native/native.cc`` into
 ``sedef_tpu_torch/_build/`` at first use (``native/build.py``), once per
 process under a lock.
 """

@@ -12,7 +12,10 @@ direction matrix to device memory, and a second kernel
 one code per anti-diagonal reaches the host.  Each kernel has a plain
 PyTorch version beside it (``wavefront_fill_torch``,
 ``backtrack_pack_torch``): it is the path for tensors on the CPU, and what
-the kernels are checked against on the card.
+the kernels are checked against on the card.  ``wavefront_fill_variant``
+runs the direct fill under a family of implementations of the same
+recurrence (``csrc/wavefront_fill_variants.cu``), for the variant harness
+``tools/kbench.py``.
 
 Recurrence (difference encoding; one row per anti-diagonal r; lane t =
 target index i; query index j = r - t):
@@ -475,11 +478,22 @@ def _kernels():
                     "sedef_tile_refill": [vp] * 5 + [ci] * 12 + [vp],
                     "sedef_traceback_pack": [vp] * 4 + [ci] * 5 + [vp],
                     "sedef_tile_traceback": [vp] * 5 + [ci] * 8 + [vp],
+                    "sedef_fill_variant": ([ctypes.c_char_p] + [vp] * 3
+                                           + [ci] * 8 + [vp]),
                 }
                 for name, argtypes in sigs.items():
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes
                     fn.restype = ci
+                lib.sedef_fill_variant_name.argtypes = [ci]
+                lib.sedef_fill_variant_name.restype = ctypes.c_char_p
+                names = (lib.sedef_fill_variant_name(i)
+                         for i in range(len(FILL_VARIANTS) + 1))
+                built = tuple(n.decode() for n in names if n is not None)
+                if built != FILL_VARIANTS:
+                    raise RuntimeError(
+                        f"kernel library's fill variants {built} are not "
+                        f"FILL_VARIANTS {FILL_VARIANTS}")
                 _KLIB = lib
     return _KLIB
 
@@ -576,6 +590,73 @@ def wavefront_fill(qseq: torch.Tensor, tgt: torch.Tensor, match: int = 5,
     _launch(wavefront_fill, dev, lib.sedef_fill, qseq.data_ptr(),
             tgt.data_ptr(), p.data_ptr(), _ptr(scratch), B, S_q, S_t, match,
             mis, gapo, gape, _threads(B, min(S_q, S_t)))
+    return p
+
+
+# the direct fill's variants (csrc/wavefront_fill_variants.cu), by
+# organisation: shared-memory state with striding threads (base); owned
+# lanes with the state in shared memory (hoist, unrollN; packed: pack,
+# packuN); owned lanes with the state in registers (reg, regN; packed:
+# preg, pregN; without boundary selects past the ramp: bspec, bspecN)
+FILL_VARIANTS = ("base", "hoist", "unroll2", "unroll4", "pack", "packu2",
+                 "packu4", "reg", "reg2", "reg4", "preg", "preg2", "preg4",
+                 "bspec", "bspec2", "bspec4")
+# lanes a thread owns in every variant but base, and its widest class
+VARIANT_LANES = 4
+VARIANT_MAX_S_T = 1024 * VARIANT_LANES
+
+
+def pack_state_torch(x: torch.Tensor, v: torch.Tensor, q: torch.Tensor
+                     ) -> torch.Tensor:
+    """The packed variants' state word (int32): x in bits 0-7, v + 128 in
+    bits 8-15, the query code in bits 16-19.  In the band 0 <= x <= gapo
+    and 0 <= v <= match + 2 * (gapo + gape) <= 127, so eight bits each
+    are enough."""
+    i32 = torch.int32
+    return (q.to(i32) << 16) | ((v.to(i32) + 128) << 8) | x.to(i32)
+
+
+def unpack_state_torch(word: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(x, v, q) of a packed state word, as the kernels read them."""
+    return word & 0xFF, ((word >> 8) & 0xFF) - 128, word >> 16
+
+
+def wavefront_fill_variant(variant: str, qseq: torch.Tensor,
+                           tgt: torch.Tensor, match: int = 5, mis: int = -4,
+                           gapo: int = 40, gape: int = 1) -> torch.Tensor:
+    """``wavefront_fill`` under the implementation ``variant`` (a name in
+    ``FILL_VARIANTS``): the same (B, S_q + S_t - 1, S_t) uint8 direction
+    bytes on every lane of a row's band.
+
+    On a CUDA tensor this launches ``csrc/wavefront_fill_variants.cu`` on
+    the current stream (no synchronisation) or raises; on a CPU tensor it
+    is ``wavefront_fill_torch``, the plain version of every variant.  An
+    unknown name, or a class or scoring a variant does not take, raises
+    ``ValueError`` on either device."""
+    if variant not in FILL_VARIANTS:
+        raise ValueError(f"unknown fill variant {variant!r}; one of "
+                         f"{', '.join(FILL_VARIANTS)}")
+    dev = _check_codes(qseq, tgt, 1)
+    B, S_q = qseq.shape
+    S_t = tgt.shape[1]
+    if variant != "base" and (S_t % VARIANT_LANES or S_t > VARIANT_MAX_S_T):
+        raise ValueError(f"variant {variant!r} takes S_t a multiple of "
+                         f"{VARIANT_LANES} up to {VARIANT_MAX_S_T}, got "
+                         f"{S_t}")
+    if (variant.startswith(("pack", "preg"))
+            and match + 2 * (gapo + gape) > 127):
+        raise ValueError(f"variant {variant!r} packs v + 128 and x into 8 "
+                         f"bits each: match + 2 * (gapo + gape) must be at "
+                         f"most 127")
+    if dev.type == "cpu":
+        return wavefront_fill_torch(qseq, tgt, match, mis, gapo, gape)
+    p = torch.empty((B, S_q + S_t - 1, S_t), dtype=torch.uint8, device=dev)
+    if B:
+        _launch(wavefront_fill_variant, dev, _kernels().sedef_fill_variant,
+                variant.encode(), qseq.data_ptr(), tgt.data_ptr(),
+                p.data_ptr(), B, S_q, S_t, match, mis, gapo, gape,
+                _threads(B, min(S_q, S_t)))
     return p
 
 
@@ -778,7 +859,7 @@ def tile_backtrack_streamed(p_tile: torch.Tensor, ql: torch.Tensor,
 KERNEL_WRAPPERS = (wavefront_fill, backtrack_pack, wavefront_fill_streamed,
                    tile_checkpoint, tile_refill, tile_backtrack,
                    tile_checkpoint_streamed, tile_refill_streamed,
-                   tile_backtrack_streamed)
+                   tile_backtrack_streamed, wavefront_fill_variant)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
 
@@ -829,6 +910,9 @@ def cigar_from_ops(ops_row: np.ndarray, qlen: int, tlen: int,
 
 
 SIZE_CLASSES = (128, 256, 512, 1024, 2048)
+# the aligner's uncalibrated batch floors (problems, DP cells)
+FROZEN_BATCH_MIN = 8
+FROZEN_BATCH_MIN_CELLS = 1 << 21
 
 
 def _pad_to_class(n: int) -> int:
@@ -886,12 +970,12 @@ class WavefrontAligner:
     NATIVE_MAX_CELLS = 1 << 33
     # batches with at least this many problems AND this many DP cells go
     # to the device in one launch pair; the rest to the native scalar DP.
-    # These are the floors the reference package's dispatch calibration
-    # derives for a directly attached chip; measuring the card's own
-    # breakevens is future work.
-    DEVICE_BATCH_MIN = 8
+    # The class holds the frozen floors (FROZEN_BATCH_MIN*, the reference
+    # package's floors for a directly attached chip); ``devcal.apply``
+    # sets the card's measured ones on an aligner instance.
+    DEVICE_BATCH_MIN = FROZEN_BATCH_MIN
     DEVICE_BATCH_MIN_CELLS = int(os.environ.get(
-        "SEDEF_DEVICE_BATCH_MIN_CELLS", 1 << 21))
+        "SEDEF_DEVICE_BATCH_MIN_CELLS", FROZEN_BATCH_MIN_CELLS))
     # on cuda, problems above this many rotated cells always go to the
     # device (a 60 Kbp chunk is ~7.2e9)
     GIANT_CELLS = 1 << 30

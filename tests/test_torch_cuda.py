@@ -77,6 +77,37 @@ def test_cuda_aligner_matches_numpy(dev):
         assert cig == wf.backtrack_np(p, len(q), len(t))
 
 
+@pytest.mark.parametrize("variant", wf.FILL_VARIANTS)
+def test_fill_variant_matches_plain(dev, variant):
+    """Every variant writes the plain fill's bytes on every band lane, on
+    ragged problems (lengths below the class, wildcards) and on classes
+    with S_q != S_t; each call is one launch."""
+    for S_q, S_t, B in [(128, 128, 9), (512, 1024, 4), (1024, 256, 3),
+                        (384, 132, 2)]:
+        rng = np.random.default_rng(S_q + S_t + B)
+        qs, ts, _, _, _ = _batch(rng, S_q, S_t, B)
+        q, t = _on_card(dev, qs, ts)
+        n0 = wf.wavefront_fill_variant.launches
+        p = wf.wavefront_fill_variant(variant, q, t)
+        torch.cuda.synchronize()
+        assert wf.wavefront_fill_variant.launches == n0 + 1
+        _assert_band_equal(p, wf.wavefront_fill_torch(q, t), 0, S_q, S_t, 1)
+
+
+def test_fill_variant_golden_and_errors(dev):
+    from sedef_tpu_torch.tools import kbench
+    for variant in wf.FILL_VARIANTS:
+        assert kbench.check_correct(variant, dev), variant
+    q = torch.zeros((2, 128), dtype=torch.int8, device=dev)
+    t = torch.zeros((2, 130), dtype=torch.int8, device=dev)
+    n0 = wf.wavefront_fill_variant.launches
+    with pytest.raises(ValueError):
+        wf.wavefront_fill_variant("reg", q, t)
+    with pytest.raises(ValueError):
+        wf.wavefront_fill_variant("nope", q, q)
+    assert wf.wavefront_fill_variant.launches == n0
+
+
 def _on_card(dev, *arrays):
     return [torch.from_numpy(a).to(dev) for a in arrays]
 

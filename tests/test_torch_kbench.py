@@ -1,0 +1,187 @@
+"""The port's fill-variant harness (``sedef_tpu_torch.tools.kbench``,
+``wavefront_fill_variant``) against the reference package: its NumPy
+reference on the harness's own golden problem, and its experiment kernel
+(``tools/kbench.make_kernel``) run in interpret mode.  On the CPU every
+variant runs the plain fill, which is what each CUDA variant is held to on
+the card.  Tolerance: exact equality (integer DP, direction bytes and
+CIGARs)."""
+
+import functools
+import importlib.util
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from sedef_tpu.ops import wavefront as ref_wf
+from sedef_tpu_torch.ops import wavefront as wf
+from sedef_tpu_torch.tools import kbench
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def ref_kbench():
+    """The reference harness, loaded from its file (``tools`` is no
+    package)."""
+    spec = importlib.util.spec_from_file_location(
+        "ref_kbench", os.path.join(REPO, "tools", "kbench.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("variant", wf.FILL_VARIANTS)
+def test_variant_on_golden_problem(variant):
+    """The reference harness's own check, and the band bytes."""
+    qseq, tgt, qs, ts = kbench.golden_problem()
+    q, t = torch.from_numpy(qseq), torch.from_numpy(tgt)
+    before = wf.wavefront_fill_variant.launches
+    p = wf.wavefront_fill_variant(variant, q, t)
+    assert wf.wavefront_fill_variant.launches == before
+    assert p.shape == (8, 255, 128) and p.dtype == torch.uint8
+    torch.testing.assert_close(p, wf.wavefront_fill_torch(q, t), rtol=0,
+                               atol=0)
+    for i, (qi, ti) in enumerate(zip(qs, ts)):
+        p_ref, _ = ref_wf.wavefront_np(qi, ti)
+        assert (wf.backtrack_np(p[i].numpy(), len(qi), len(ti))
+                == ref_wf.backtrack_np(p_ref, len(qi), len(ti))), i
+    assert kbench.check_correct(variant, "cpu")
+
+
+def test_golden_problem_is_the_reference_harnesses():
+    """Same generator, same order of draws as ``check_correct`` there."""
+    qseq, tgt, qs, ts = kbench.golden_problem()
+    rng = np.random.default_rng(3)
+    qlens = rng.integers(60, 128, 8)
+    tlens = rng.integers(60, 128, 8)
+    for i in range(8):
+        q = rng.integers(0, 4, qlens[i]).astype(np.int8)
+        t = rng.integers(0, 4, tlens[i]).astype(np.int8)
+        np.testing.assert_array_equal(qs[i], q)
+        np.testing.assert_array_equal(ts[i], t)
+        np.testing.assert_array_equal(qseq[i, :qlens[i]], q)
+        assert (qseq[i, qlens[i]:] == 4).all() and (tgt[i, tlens[i]:]
+                                                    == 4).all()
+
+
+@pytest.mark.parametrize("ref_variant,variant", [("base", "base"),
+                                                 ("pack", "pack")])
+def test_band_bytes_match_reference_kernel_interpreted(
+        ref_kbench, monkeypatch, ref_variant, variant):
+    """``tools/kbench.make_kernel`` in interpret mode (its file untouched:
+    ``pallas_call`` is wrapped for the length of the test) writes the
+    port's direction bytes on every band lane."""
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    S = 128
+    qseq, tgt, _, _ = kbench.golden_problem(S)
+    qc = np.full((8, ref_kbench._padded_rows(S, S)), 4, np.int32)
+    qc[:, :S] = qseq
+    run = ref_kbench.make_kernel(ref_variant, S, S)
+    p = np.asarray(run(jnp.asarray(qc), jnp.asarray(tgt)))
+    # (B/8, rows, 8, S_t) -> (B, S_q + S_t - 1, S_t)
+    ref = torch.from_numpy(np.ascontiguousarray(
+        p[0].transpose(1, 0, 2)[:, :2 * S - 1]))
+    got = wf.wavefront_fill_variant(variant, torch.from_numpy(qseq),
+                                    torch.from_numpy(tgt))
+    assert kbench.band_mismatches(got, ref, S, S) == 0
+
+
+def test_packed_state_round_trips_and_matches_the_layout():
+    """x in bits 0-7, v + 128 in bits 8-15, the query code in bits 16-19
+    (``tools/kbench.py``'s packed layout), over the full value ranges."""
+    x, v, q = torch.meshgrid(torch.arange(0, 256), torch.arange(-128, 128),
+                             torch.arange(0, 5), indexing="ij")
+    word = wf.pack_state_torch(x, v, q)
+    assert word.dtype == torch.int32
+    assert torch.equal(word, (q << 16 | (v + 128) << 8 | x).to(torch.int32))
+    assert torch.equal(word & 0xFF, x.to(torch.int32))
+    assert torch.equal((word >> 8) & 0xFF, (v + 128).to(torch.int32))
+    assert torch.equal((word >> 16) & 0xF, q.to(torch.int32))
+    assert int(word.max()) < 1 << 20 and int(word.min()) >= 0
+    xs, vs, qs = wf.unpack_state_torch(word)
+    for got, want in ((xs, x), (vs, v), (qs, q)):
+        assert torch.equal(got, want.to(torch.int32))
+    # the reference's initial word: x = 0, v = 0, wildcard code
+    assert int(wf.pack_state_torch(*map(torch.tensor, (0, 0, 4)))) == (
+        (4 << 16) | (128 << 8))
+
+
+def test_state_of_the_default_scoring_fits_the_packed_word():
+    """Every x and v the fill carries in the band lies in the ranges the
+    packed word holds (checked on the golden problem's own state)."""
+    qseq, tgt, _, _ = kbench.golden_problem()
+    q, t = torch.from_numpy(qseq), torch.from_numpy(tgt)
+    S = 128
+    ckpt = wf.tile_checkpoint_torch(q, t, 4)  # state entering every 4th row
+    for ti in range(1, ckpt.shape[1]):
+        band = wf.stream_band(ti * 4 - 1, ti * 4, S, S)[0]
+        u, y, x, v = (ckpt[:, ti, c][:, band] for c in range(4))
+        assert 0 <= int(x.min()) and int(x.max()) <= 40
+        assert 0 <= int(v.min()) and int(v.max()) <= 87
+        assert 0 <= int(u.min()) and int(u.max()) <= 87
+
+
+@pytest.mark.parametrize("bad", ["name", "S_t", "wide", "scores"])
+def test_variant_wrapper_rejects(bad):
+    q = torch.zeros((2, 128), dtype=torch.int8)
+    t = torch.zeros((2, 128), dtype=torch.int8)
+    variant, kw = "reg", {}
+    if bad == "name":
+        variant = "reg3"
+    elif bad == "S_t":
+        t = torch.zeros((2, 130), dtype=torch.int8)
+    elif bad == "wide":
+        t = torch.zeros((2, 4100), dtype=torch.int8)
+    else:
+        variant, kw = "preg", {"gapo": 80}
+    with pytest.raises(ValueError):
+        wf.wavefront_fill_variant(variant, q, t, **kw)
+    if bad in ("S_t", "wide"):  # base takes any class that fits
+        assert wf.wavefront_fill_variant("base", q, t).shape[2] == t.shape[1]
+
+
+def test_variant_joins_the_kernel_wrappers():
+    assert wf.wavefront_fill_variant in wf.KERNEL_WRAPPERS
+    assert len(wf.KERNEL_WRAPPERS) == 10
+    assert isinstance(wf.wavefront_fill_variant.launches, int)
+
+
+def test_kbench_cpu_runs_without_jax(tmp_path):
+    """``python -m sedef_tpu_torch.tools.kbench --device cpu`` checks every
+    variant, prints no times, and imports neither jax nor sedef_tpu."""
+    code = ("import runpy, sys\n"
+            "sys.argv = ['kbench', '--device', 'cpu']\n"
+            "try:\n"
+            "    runpy.run_module('sedef_tpu_torch.tools.kbench', "
+            "run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert not e.code, e.code\n"
+            "assert 'jax' not in sys.modules\n"
+            "assert not any(m == 'sedef_tpu' or m.startswith('sedef_tpu.')"
+            " for m in sys.modules)\n"
+            "print('NO_JAX_OK')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = r.stdout.splitlines()
+    assert lines[-1] == "NO_JAX_OK"
+    assert [ln.split()[0] for ln in lines[:-1]] == list(wf.FILL_VARIANTS)
+    assert all(ln.split()[1] == "correct=True" for ln in lines[:-1])
+    assert " ms" not in r.stdout and "GCUPS" not in r.stdout
+
+
+def test_kbench_cuda_without_card_exits_nonzero(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        kbench.main(["--device", "cuda", "base"])
+    assert e.value.code not in (0, None)
