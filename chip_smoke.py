@@ -11,7 +11,11 @@ line):
    checkout's sources;
 3. every kernel against its plain PyTorch version on the card, at the
    size classes stage 2b produces (plus one 60 Kbp chunk problem on the
-   direct and the tiled route): 0 mismatching direction bytes on every
+   direct and the tiled route; for the cluster tile fill the line names
+   its plan: cluster size C, lanes per block W, rows per cluster barrier
+   N, and the clusters the card holds at once; past 10 tiles the plain
+   refill and walk run on every third tile): 0 mismatching direction
+   bytes on every
    written lane, 0 mismatching checkpoint words, packed-op bytes and walker
    states, and CIGARs equal to the NumPy reference on a subset; every fill
    variant against the plain fill on the variant harness's golden problem
@@ -57,17 +61,18 @@ import time
 SRC_FILL = "sedef_tpu_torch/csrc/wavefront_fill.cu"
 SRC_TRACE = "sedef_tpu_torch/csrc/traceback_pack.cu"
 SRC_VARIANTS = "sedef_tpu_torch/csrc/wavefront_fill_variants.cu"
+SRC_CLUSTER = "sedef_tpu_torch/csrc/tile_fill_cluster.cu"
 REF = "sedef_tpu/ops/wavefront.py"
 # kernel wrapper -> (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "wavefront_fill": (SRC_FILL, f"{REF}:240"),
     "backtrack_pack": (SRC_TRACE, f"{REF}:387"),
     "wavefront_fill_streamed": (SRC_FILL, f"{REF}:679"),
-    "tile_checkpoint": (SRC_FILL, f"{REF}:849"),
-    "tile_refill": (SRC_FILL, f"{REF}:925"),
+    "tile_checkpoint": (SRC_CLUSTER, f"{REF}:849"),
+    "tile_refill": (SRC_CLUSTER, f"{REF}:925"),
     "tile_backtrack": (SRC_TRACE, f"{REF}:1003"),
-    "tile_checkpoint_streamed": (SRC_FILL, f"{REF}:1165"),
-    "tile_refill_streamed": (SRC_FILL, f"{REF}:1240"),
+    "tile_checkpoint_streamed": (SRC_CLUSTER, f"{REF}:1165"),
+    "tile_refill_streamed": (SRC_CLUSTER, f"{REF}:1240"),
     "tile_backtrack_streamed": (SRC_TRACE, f"{REF}:1314"),
     "wavefront_fill_variant": (SRC_VARIANTS, "tools/kbench.py:25"),
 }
@@ -81,9 +86,13 @@ SHAPES = [(128, 128, 256), (256, 1024, 64), (1024, 1024, 64),
 # least 1 Kbp wide; the mosaic genome's regions give ~50 of 2 Kbp)
 STREAM_SHAPES = [(1024, 1024, 64), (2048, 2048, 50)]
 # (S_q, S_t, B) of the tiled route: the mosaic genome's 10 Kbp dp_indel
-# class, alone (<= 8 problems) and streamed (> 8), and one 60 Kbp chunk
-TILED_SHAPES = [(10240, 10240, 4), (10240, 10240, 16), (61440, 61440, 1)]
+# class, alone (<= 8 problems) and streamed (> 8), the narrowest giant
+# class the route rule produces ((S_q + S_t) * S_t > 2^27), and one 60 Kbp
+# chunk
+TILED_SHAPES = [(10240, 10240, 4), (10240, 10240, 16), (30720, 4096, 4),
+                (61440, 61440, 1)]
 NUMPY_CHECK_MAX = 10240  # CIGARs vs NumPy only up to this class width
+PLAIN_TILES_MAX = 10     # plain refill / walk on every tile up to this many
 NUMPY_CHECK_N = 4
 # shape whose times go into the kernel summary, per kernel
 SUMMARY_AT = {"wavefront_fill": (1024, 1024, 64),
@@ -470,7 +479,17 @@ class KernelPhase:
         (qs, ts, ql, tl), (q, t, qlt, tlt) = self._inputs(S_q, S_t, B)
         kargs = (K, tile) if streamed else (tile,)
         timers = {n: (_Timer(), _Timer()) for n in names}
-        ck_k = timers[names[0]][0].kernel(lambda: ckpt_fn(q, t, *kargs))
+        plan = wf.tile_plan_on(self.dev, S_t, B // K, False)
+        held = [wf.tile_cluster_occupancy(plan, B // K, refill, self.dev)
+                for refill in (False, True)]
+        plan_note = (f" {B // K} clusters of C={plan.C} W={plan.W} "
+                     f"lanes={plan.lanes} N={plan.N} ring={plan.ring} "
+                     f"smem={plan.smem_bytes} B,"
+                     f" max active clusters {held[0]} (checkpoint) / "
+                     f"{held[1]} (refill);")
+        ckpt_fn(q, t, *kargs)  # the first, cold launch is not timed
+        for _ in range(3):
+            ck_k = timers[names[0]][0].kernel(lambda: ckpt_fn(q, t, *kargs))
         ck_p = timers[names[0]][1].plain(
             lambda: wf.tile_checkpoint_torch(q, t, tile, K))
         ck_bad = ck_worst = 0
@@ -489,11 +508,24 @@ class KernelPhase:
         out_k = torch.empty((B, n_bytes), dtype=torch.uint8, device=self.dev)
         out_p = out_k.clone()
         fill_worst = walk_bad = 0
-        for ti in range(ck_k.shape[1] - 1, -1, -1):
+        refill_fn(q, t, ck_k, *((0, K, tile) if streamed else (0, tile)))
+        n_tiles = ck_k.shape[1]
+        # past PLAIN_TILES_MAX tiles the plain versions run on every third
+        # tile and on the first and the last; the kernels run on all, and
+        # the route's packed ops are held against the direct route's below
+        stride = 1 if n_tiles <= PLAIN_TILES_MAX else 3
+        for ti in range(n_tiles - 1, -1, -1):
             r0 = ti * tile
             rargs = (ti, K, tile) if streamed else (ti, tile)
+            wargs = (r0, S_q, K) if streamed else (r0, S_q)
             pt_k = timers[names[1]][0].kernel(
                 lambda: refill_fn(q, t, ck_k, *rargs))
+            if ti % stride and ti != n_tiles - 1:
+                timers[names[2]][0].kernel(
+                    lambda: walk_fn(pt_k, qlt, tlt, ws_k, out_k, *wargs))
+                ws_p.copy_(ws_k)
+                out_p.copy_(out_k)
+                continue
             pt_p = timers[names[1]][1].plain(
                 lambda: wf.tile_refill_torch(q, t, ck_k, ti, tile, K))
             rows = min(tile, n_rows - r0)
@@ -502,7 +534,6 @@ class KernelPhase:
             _require(bad, f"{names[1]} ({S_q},{S_t}) tile {ti}")
             fill_worst = max(fill_worst, worst)
             del pt_p
-            wargs = (r0, S_q, K) if streamed else (r0, S_q)
             timers[names[2]][0].kernel(
                 lambda: walk_fn(pt_k, qlt, tlt, ws_k, out_k, *wargs))
             timers[names[2]][1].plain(
@@ -512,24 +543,27 @@ class KernelPhase:
                                                          != out_p).sum())
             _require(walk_bad, f"{names[2]} ({S_q},{S_t}) tile {ti}")
         del pt_k, ck_k
-        direct = wf.backtrack_pack(wf.wavefront_fill(q, t), qlt, tlt)
+        dk = _Timer()
+        p_direct = dk.kernel(lambda: wf.wavefront_fill(q, t))
+        direct = wf.backtrack_pack(p_direct, qlt, tlt)
         _require(int((out_k != direct).sum()), f"tiled ({S_q},{S_t}) vs "
                  f"direct ops")
-        del direct
+        del direct, p_direct
         n_np = 1 if max(S_q, S_t) <= NUMPY_CHECK_MAX else 0
         _check_cigars(wf, qs, ts, ql, tl, out_k.cpu().numpy(), n_np,
                       f"tiled ({S_q},{S_t})")
         parts = ", ".join(
             f"{n} {timers[n][0].mean:.3f} ms x{timers[n][0].n} (plain "
-            f"{timers[n][1].mean:.1f} ms)" for n in names)
-        log(f"[kernels] tiled ({S_q},{S_t}) B={B} K={K} tile={tile}: "
-            f"{parts}; route total {sum(timers[n][0].ms for n in names):.3f}"
-            f" ms; 0 mismatches, ops = direct route's; {n_np} CIGARs = "
-            f"NumPy")
+            f"{timers[n][1].mean:.1f} ms x{timers[n][1].n})" for n in names)
+        total = timers[names[0]][0].mean + sum(timers[n][0].ms
+                                                for n in names[1:])
+        log(f"[kernels] tiled ({S_q},{S_t}) B={B} K={K} tile={tile}:"
+            f"{plan_note} {parts}; route total {total:.3f} ms (direct "
+            f"fill of the same batch {dk.mean:.3f} ms); 0 mismatches, ops "
+            f"= direct route's; {n_np} CIGARs = NumPy")
         # work per launch: the checkpoint pass does the whole fill once;
         # a refill or a walk does, on average, one tile's share of it
         n = B // K
-        n_tiles = -(-n_rows // tile)
         cells = n * K * S_q * S_t
         codes = B * (S_q + S_t)
         steps = consumed_rows(out_k)
@@ -817,7 +851,7 @@ def phase_profile(genomes, tmp):
                 busy += dev_us
                 rows.append((dev_us, ev.key, ev.count))
         rows.sort(reverse=True)
-        top = "; ".join(f"{k[:40]} {us / 1e3:.3f} ms x{c}"
+        top = "; ".join(f"{k[:64]} {us / 1e3:.3f} ms x{c}"
                         for us, k, c in rows[:8])
         log(f"[profile] {run}: wall {wall:.3f} s, device busy "
             f"{busy / 1e3:.3f} ms ({100 * busy / 1e6 / wall:.2f}%); {top}")

@@ -1,15 +1,14 @@
-// Fills of the anti-diagonal affine-gap global DP: direct, streamed, and
-// the checkpoint / tile-refill pair of the tiled route.
+// Fills of the anti-diagonal affine-gap global DP: direct and streamed.
 //
 // Replaces, by entry point (TPU kernels in sedef_tpu/ops/wavefront.py):
 //   sedef_fill                  wavefront_pallas_batch (body _dp_row)
 //   sedef_fill_streamed         wavefront_pipelined_batch (_pipe_dp_row)
-//   sedef_tile_ckpt   stream=0  _ckpt_pass;       stream=1  _ckpt_pass_pipe
-//   sedef_tile_refill stream=0  _refill_tile;     stream=1  _refill_tile_pipe
-// All four run one template, fill_kernel, so every route computes the same
-// bytes.  The recurrence is the one in the docstring of
-// sedef_tpu_torch/ops/wavefront.py (ksw2 extz2's difference encoding,
-// rotated so that row r is anti-diagonal r and lane t is target index t).
+// Both run one template, fill_kernel; the checkpoint / tile-refill pair of
+// the tiled route (tile_fill_cluster.cu) computes the same bytes on every
+// band lane of the same layout.  The recurrence is the one in the
+// docstring of sedef_tpu_torch/ops/wavefront.py (ksw2 extz2's difference
+// encoding, rotated so that row r is anti-diagonal r and lane t is target
+// index t).
 //
 // Streams.  A block owns one stream of K problems of one (S_q, S_t) class,
 // run back to back in the same lanes and staggered by S_q rows (K = 1 is
@@ -23,42 +22,40 @@
 // lane -1 sees (x, v) = (0, j ? q : 0).
 //
 // Layout: p is (n_streams, n_rows, S_t) uint8, n_rows = K * S_q + S_t - 1
-// (wavefront_np's layout for K = 1, no sublane/lane packing); a tile is
-// (n_streams, tile, S_t).  Only lanes of a row's band are written; the
-// traceback never reads others.  A checkpoint is the state entering a tile,
-// (n_streams, n_tiles, 4, S_t) int32 planes u, y, x, v.
+// (wavefront_np's layout for K = 1, no sublane/lane packing).  Only lanes of
+// a row's band are written; the traceback never reads others.  The tiled
+// route's tile is (n_streams, tile, S_t) of the same rows, its checkpoint
+// the state entering a tile, (n_streams, n_tiles, 4, S_t) int32 planes u, y,
+// x, v.
 //
-// What bounds it on the H100: one byte stored and ~25 integer operations
-// per cell, one dependency step per anti-diagonal.  At large batch the byte
-// stream makes it memory-bound; at small batch the per-row __syncthreads()
-// chain is the limit, and a 60 Kbp problem (123 K rows) keeps one SM busy
-// for seconds.  What the design does about it: threads stride over a row's
-// band so neighbouring threads store neighbouring bytes (coalesced); the
-// state (u, y in place; x, v ping-ponged by row parity because lane t reads
-// the t-1 neighbour of the previous row) lives in shared memory, with the
-// stream's codes, whenever 24 * S_t + K * (S_q + S_t) bytes fit, otherwise
-// in a global scratch slab per stream (L2-resident).  Streams remove the
-// band's ramp-up and ramp-down rows (~S_q + S_t rows per problem become
-// ~S_q); the tiled route trades a second fill for memory, so many giant
-// problems run side by side instead of one 7.5 GB matrix at a time.  The
-// max chains are plain integer max/min: the direction byte needs the
-// strict '>' tests in order, which a DPX max intrinsic does not report.
+// What bounds it on the H100: 29 integer operations per band cell (6 for
+// the score, 17 for the recurrence, 6 for the direction flags) and one byte
+// stored, one dependency step per anti-diagonal.  At every batch size the
+// integer instruction rate, not the byte stream, is the bound; at small
+// batch the chain of rows is what is felt: a block is one SM, a row's
+// instructions pass through its four schedulers, and a 60 Kbp problem
+// (123 K rows) keeps one SM busy for seconds.  What the design does about
+// it: threads stride over a row's band so neighbouring threads store
+// neighbouring bytes (coalesced); the state (u, y in place; x, v
+// ping-ponged by row parity because lane t reads the t-1 neighbour of the
+// previous row) lives in shared memory, with the stream's codes, whenever
+// 24 * S_t + K * (S_q + S_t) bytes fit, otherwise in a global scratch slab
+// per stream (L2-resident).  Streams remove the band's ramp-up and
+// ramp-down rows (~S_q + S_t rows per problem become ~S_q).  The max chains
+// are plain integer max/min: the direction byte needs the strict '>' tests
+// in order, which a DPX max intrinsic does not report.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-enum { MODE_P = 0, MODE_CKPT = 1, MODE_REFILL = 2 };
-
-template <bool SMEM, bool STREAM, int MODE>
+template <bool SMEM, bool STREAM>
 __global__ void fill_kernel(const int8_t* __restrict__ qseq,
                             const int8_t* __restrict__ tgt,
                             uint8_t* __restrict__ p,
-                            int32_t* __restrict__ ckpt,
                             int32_t* __restrict__ scratch, int K, int S_q,
-                            int S_t, int r_begin, int r_end, int tile,
-                            int match, int mis, int gapo, int qe2,
+                            int S_t, int match, int mis, int gapo, int qe2,
                             int max_sc) {
   extern __shared__ int32_t smem[];
   const int s = blockIdx.x;
@@ -81,45 +78,18 @@ __global__ void fill_kernel(const int8_t* __restrict__ qseq,
     ts = codes;
     qs = codes + Kp * S_t;
   }
-  const int n_tiles = tile > 0 ? (Q + S_t - 1 + tile - 1) / tile : 0;
-  if (MODE == MODE_REFILL) {
-    // the state entering this tile; r_begin is even, so row r_begin - 1
-    // left x and v in parity plane 1
-    const int32_t* ck = ckpt + ((size_t)s * n_tiles + r_begin / tile) * 4 *
-                                   S_t;
-    for (int t = threadIdx.x; t < S_t; t += blockDim.x) {
-      U[t] = ck[t];
-      Y[t] = ck[S_t + t];
-      X[S_t + t] = ck[2 * S_t + t];
-      V[S_t + t] = ck[3 * S_t + t];
-    }
-  }
   __syncthreads();
-  uint8_t* pb = p;
-  if (MODE == MODE_P) pb += (size_t)s * (Q + S_t - 1) * S_t;
-  if (MODE == MODE_REFILL) pb += (size_t)s * tile * S_t;
+  const int n_rows = Q + S_t - 1;
+  uint8_t* pb = p + (size_t)s * n_rows * S_t;
 
-  for (int r = r_begin; r < r_end; ++r) {
-    if (MODE == MODE_CKPT && r % tile == 0) {
-      int32_t* ck = ckpt + ((size_t)s * n_tiles + r / tile) * 4 * S_t;
-      const int32_t* Xp = X + ((r & 1) ^ 1) * S_t;
-      const int32_t* Vp = V + ((r & 1) ^ 1) * S_t;
-      for (int t = threadIdx.x; t < S_t; t += blockDim.x) {
-        ck[t] = U[t];
-        ck[S_t + t] = Y[t];
-        ck[2 * S_t + t] = Xp[t];
-        ck[3 * S_t + t] = Vp[t];
-      }
-      __syncthreads();
-    }
+  for (int r = 0; r < n_rows; ++r) {
     const int st0 = max(0, r - Q + 1);
     const int en0 = min(r, S_t - 1);
     const int32_t* Xp = X + ((r & 1) ^ 1) * S_t;
     const int32_t* Vp = V + ((r & 1) ^ 1) * S_t;
     int32_t* Xc = X + (r & 1) * S_t;
     int32_t* Vc = V + (r & 1) * S_t;
-    uint8_t* prow = pb + (size_t)(MODE == MODE_REFILL ? r - r_begin : r) *
-                             S_t;
+    uint8_t* prow = pb + (size_t)r * S_t;
     for (int t = st0 + threadIdx.x; t <= en0; t += blockDim.x) {
       const int m = r - t;  // in [0, Q) inside the band
       const int k = STREAM ? m / S_q : 0;
@@ -146,20 +116,17 @@ __global__ void fill_kernel(const int8_t* __restrict__ qseq,
       Y[t] = max(b2, 0);
       Vc[t] = z - ub;
       Xc[t] = max(a2, 0);
-      if (MODE != MODE_CKPT) {
-        d |= (a2 > 0 ? 8 : 0) | (b2 > 0 ? 16 : 0);
-        prow[t] = (uint8_t)d;
-      }
+      d |= (a2 > 0 ? 8 : 0) | (b2 > 0 ? 16 : 0);
+      prow[t] = (uint8_t)d;
     }
     __syncthreads();
   }
 }
 
-template <bool STREAM, int MODE>
-int launch(const void* qseq, const void* tgt, void* p, void* ckpt,
-           void* scratch, int n_streams, int K, int S_q, int S_t,
-           int r_begin, int r_end, int tile, int match, int mis, int gapo,
-           int gape, int threads, int smem, void* stream) {
+template <bool STREAM>
+int launch(const void* qseq, const void* tgt, void* p, void* scratch,
+           int n_streams, int K, int S_q, int S_t, int match, int mis,
+           int gapo, int gape, int threads, int smem, void* stream) {
   const int qe2 = 2 * (gapo + gape);
   const int max_sc = match + qe2;
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
@@ -167,17 +134,15 @@ int launch(const void* qseq, const void* tgt, void* p, void* ckpt,
   const int8_t* q = static_cast<const int8_t*>(qseq);
   const int8_t* t = static_cast<const int8_t*>(tgt);
   uint8_t* pp = static_cast<uint8_t*>(p);
-  int32_t* ck = static_cast<int32_t*>(ckpt);
   if (smem > 0) {
-    cudaFuncSetAttribute(fill_kernel<true, STREAM, MODE>,
+    cudaFuncSetAttribute(fill_kernel<true, STREAM>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    fill_kernel<true, STREAM, MODE><<<n_streams, threads, smem, cs>>>(
-        q, t, pp, ck, nullptr, K, S_q, S_t, r_begin, r_end, tile, match, mis,
-        gapo, qe2, max_sc);
+    fill_kernel<true, STREAM><<<n_streams, threads, smem, cs>>>(
+        q, t, pp, nullptr, K, S_q, S_t, match, mis, gapo, qe2, max_sc);
   } else {
-    fill_kernel<false, STREAM, MODE><<<n_streams, threads, 0, cs>>>(
-        q, t, pp, ck, static_cast<int32_t*>(scratch), K, S_q, S_t, r_begin,
-        r_end, tile, match, mis, gapo, qe2, max_sc);
+    fill_kernel<false, STREAM><<<n_streams, threads, 0, cs>>>(
+        q, t, pp, static_cast<int32_t*>(scratch), K, S_q, S_t, match, mis,
+        gapo, qe2, max_sc);
   }
   return (int)cudaGetLastError();
 }
@@ -200,10 +165,9 @@ int sedef_fill_smem_bytes(int K, int S_q, int S_t) {
 int sedef_fill(const void* qseq, const void* tgt, void* p, void* scratch,
                int B, int S_q, int S_t, int match, int mis, int gapo,
                int gape, int threads, void* stream) {
-  return launch<false, MODE_P>(qseq, tgt, p, nullptr, scratch, B, 1, S_q,
-                               S_t, 0, S_q + S_t - 1, 0, match, mis, gapo,
-                               gape, threads,
-                               sedef_fill_smem_bytes(1, S_q, S_t), stream);
+  return launch<false>(qseq, tgt, p, scratch, B, 1, S_q, S_t, match, mis,
+                       gapo, gape, threads,
+                       sedef_fill_smem_bytes(1, S_q, S_t), stream);
 }
 
 // Streamed fill.  qseq (n_streams * K, S_q), tgt (n_streams * K, S_t),
@@ -213,53 +177,9 @@ int sedef_fill_streamed(const void* qseq, const void* tgt, void* p,
                         void* scratch, int n_streams, int K, int S_q,
                         int S_t, int match, int mis, int gapo, int gape,
                         int threads, void* stream) {
-  return launch<true, MODE_P>(qseq, tgt, p, nullptr, scratch, n_streams, K,
-                              S_q, S_t, 0, K * S_q + S_t - 1, 0, match, mis,
-                              gapo, gape, threads,
-                              sedef_fill_smem_bytes(K, S_q, S_t), stream);
-}
-
-// Checkpoint pass of the tiled route: the whole fill, storing only the
-// state entering each tile, ckpt (n_streams, n_tiles, 4, S_t) int32.
-// ``streamed`` = 0 requires K = 1.
-int sedef_tile_ckpt(const void* qseq, const void* tgt, void* ckpt,
-                    void* scratch, int n_streams, int K, int S_q, int S_t,
-                    int tile, int streamed, int match, int mis, int gapo,
-                    int gape, int threads, void* stream) {
-  const int n_rows = K * S_q + S_t - 1;
-  const int smem = sedef_fill_smem_bytes(K, S_q, S_t);
-  if (streamed)
-    return launch<true, MODE_CKPT>(qseq, tgt, nullptr, ckpt, scratch,
-                                   n_streams, K, S_q, S_t, 0, n_rows, tile,
-                                   match, mis, gapo, gape, threads, smem,
-                                   stream);
-  return launch<false, MODE_CKPT>(qseq, tgt, nullptr, ckpt, scratch,
-                                  n_streams, 1, S_q, S_t, 0, n_rows, tile,
-                                  match, mis, gapo, gape, threads, smem,
-                                  stream);
-}
-
-// Refill of tile ``ti``: rows [ti * tile, min((ti + 1) * tile, n_rows))
-// from its checkpoint into p_tile (n_streams, tile, S_t) uint8.
-int sedef_tile_refill(const void* qseq, const void* tgt, const void* ckpt,
-                      void* p_tile, void* scratch, int n_streams, int K,
-                      int S_q, int S_t, int tile, int ti, int streamed,
-                      int match, int mis, int gapo, int gape, int threads,
-                      void* stream) {
-  const int n_rows = K * S_q + S_t - 1;
-  const int r0 = ti * tile;
-  const int r1 = r0 + tile < n_rows ? r0 + tile : n_rows;
-  const int smem = sedef_fill_smem_bytes(K, S_q, S_t);
-  void* ck = const_cast<void*>(ckpt);
-  if (streamed)
-    return launch<true, MODE_REFILL>(qseq, tgt, p_tile, ck, scratch,
-                                     n_streams, K, S_q, S_t, r0, r1, tile,
-                                     match, mis, gapo, gape, threads, smem,
-                                     stream);
-  return launch<false, MODE_REFILL>(qseq, tgt, p_tile, ck, scratch,
-                                    n_streams, 1, S_q, S_t, r0, r1, tile,
-                                    match, mis, gapo, gape, threads, smem,
-                                    stream);
+  return launch<true>(qseq, tgt, p, scratch, n_streams, K, S_q, S_t, match,
+                      mis, gapo, gape, threads,
+                      sedef_fill_smem_bytes(K, S_q, S_t), stream);
 }
 
 }  // extern "C"

@@ -47,6 +47,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -474,8 +475,10 @@ def _kernels():
                     "sedef_fill_smem_bytes": [ci] * 3,
                     "sedef_fill": [vp] * 4 + [ci] * 8 + [vp],
                     "sedef_fill_streamed": [vp] * 4 + [ci] * 9 + [vp],
-                    "sedef_tile_ckpt": [vp] * 4 + [ci] * 11 + [vp],
-                    "sedef_tile_refill": [vp] * 5 + [ci] * 12 + [vp],
+                    "sedef_tile_ckpt": [vp] * 3 + [ci] * 14 + [vp],
+                    "sedef_tile_refill": [vp] * 4 + [ci] * 15 + [vp],
+                    "sedef_tile_cluster_occupancy": (
+                        [ci] * 7 + [ctypes.POINTER(ci)]),
                     "sedef_traceback_pack": [vp] * 4 + [ci] * 5 + [vp],
                     "sedef_tile_traceback": [vp] * 5 + [ci] * 8 + [vp],
                     "sedef_fill_variant": ([ctypes.c_char_p] + [vp] * 3
@@ -689,7 +692,137 @@ def wavefront_fill_streamed(qseq: torch.Tensor, tgt: torch.Tensor, K: int,
     return p
 
 
-def _tile_ckpt(wrapper, qseq, tgt, K, tile, streamed, score):
+# The cluster tile fill (csrc/tile_fill_cluster.cu): one stream's S_t lanes
+# go over the C blocks of a thread-block cluster, W lanes a block, 1, 2 or
+# 4 lanes a thread; block c runs N rows behind block c - 1 and the cluster
+# barrier comes once per N rows.
+TILE_LANES = (1, 2, 4)   # lanes a thread can own
+TILE_THREADS = 1024      # threads of one block at most
+TILE_MAX_W = TILE_THREADS * TILE_LANES[-1]  # lanes of one block at most
+TILE_MIN_W = 256         # below this a block's row is too short to split
+# a thread owns two lanes from this block width on: at W = 512 .. 1024 the
+# checkpoint pass is 7-13% faster with two lanes a thread than with one, at
+# W = 256 and 384 no faster (tools/kbench.py's tiled table on an H100)
+TILE_TWO_LANES_W = 512
+TILE_MAX_CLUSTER = 16    # the card's largest (non-portable) cluster
+# rows per cluster barrier: at 10 and 60 Kbp the checkpoint pass is ~10%
+# faster with 32 than with 8 and a 4096-row refill no slower, its longer
+# ramp included (tools/kbench.py's tiled table on an H100)
+TILE_ROWS_PER_BARRIER = 32
+
+
+class TilePlan(NamedTuple):
+    """How the cluster tile fill lays out one stream: ``C`` blocks of
+    ``W`` lanes (a multiple of 4, C * W >= S_t), ``lanes`` consecutive
+    lanes a thread, a cluster barrier every ``N`` rows, seam rings of
+    ``ring`` slots."""
+    C: int
+    W: int
+    lanes: int
+    N: int
+    ring: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """A block's shared memory: u, y and two parity planes of x and v
+        for its lanes, and the two inbound seam rings."""
+        return 4 * (6 * self.W + 2 * self.ring)
+
+
+def tile_min_cluster(S_t: int) -> int:
+    """The smallest cluster (a power of two) whose blocks hold S_t lanes."""
+    C = 1
+    while -(-S_t // C) > TILE_MAX_W:
+        C *= 2
+    if C > TILE_MAX_CLUSTER:
+        raise ValueError(f"S_t = {S_t} exceeds the cluster tile fill's "
+                         f"{TILE_MAX_CLUSTER * TILE_MAX_W} lanes")
+    return C
+
+
+def tile_plan(S_t: int, n_streams: int, sms: int,
+              N: int = TILE_ROWS_PER_BARRIER, C: int | None = None,
+              lanes: int | None = None) -> TilePlan:
+    """The plan of a launch of ``n_streams`` streams S_t lanes wide on a
+    card of ``sms`` SMs.  C, unless given: the largest power of two up to
+    TILE_MAX_CLUSTER that leaves a block at least TILE_MIN_W lanes and
+    asks for no more blocks than the card has SMs, but never fewer blocks
+    than S_t lanes need (clusters beyond the SM count queue whole).
+    ``lanes``, unless given: the fewest lanes a thread that a block of
+    TILE_THREADS threads covers W with, and two from TILE_TWO_LANES_W lanes
+    on (a short row is bound by one warp's chain of instructions, so it
+    wants many warps of few lanes; a long one by the SM's instruction rate,
+    so it wants few instructions a cell).  The seam ring is the power of
+    two above the 2 N + 1 rows that are live at a seam during a step."""
+    if S_t < 1 or n_streams < 1 or sms < 1:
+        raise ValueError("S_t, n_streams and sms must be positive")
+    if N < 1 or (N > 1 and N % 2):
+        raise ValueError(f"rows per barrier must be 1 or even, got {N}")
+    need = tile_min_cluster(S_t)
+    if C is None:
+        C = 1
+        while (2 * C <= TILE_MAX_CLUSTER and -(-S_t // (2 * C)) >= TILE_MIN_W
+               and n_streams * 2 * C <= sms):
+            C *= 2
+        C = max(C, need)
+    elif C < need or C & (C - 1):
+        raise ValueError(f"a cluster of {C} blocks cannot hold S_t = {S_t} "
+                         f"(a power of two >= {need})")
+    W = -(-(-(-S_t // C)) // 4) * 4
+    if lanes is None:
+        lanes = next(n for n in TILE_LANES if W <= TILE_THREADS * n)
+        if lanes == 1 and W >= TILE_TWO_LANES_W:
+            lanes = 2
+    elif lanes not in TILE_LANES or W > TILE_THREADS * lanes:
+        raise ValueError(f"{lanes} lanes a thread cannot cover {W} lanes "
+                         f"with {TILE_THREADS} threads")
+    ring = 4
+    while ring <= 2 * N:
+        ring *= 2
+    return TilePlan(C, W, lanes, N, ring)
+
+
+_OCCUPANCY: dict = {}
+
+
+def tile_cluster_occupancy(plan: TilePlan, n_streams: int, refill: bool,
+                           dev: torch.device) -> int:
+    """Clusters of ``plan``'s shape the card holds at once
+    (``cudaOccupancyMaxActiveClusters``); 0 when the card refuses the
+    shape."""
+    key = (dev.index, plan, bool(refill))
+    if key not in _OCCUPANCY:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = _kernels().sedef_tile_cluster_occupancy(
+                int(refill), n_streams, *plan, ctypes.byref(out))
+        _OCCUPANCY[key] = 0 if rc else out.value
+    return _OCCUPANCY[key]
+
+
+def tile_plan_on(dev: torch.device, S_t: int, n_streams: int, refill: bool
+                 ) -> TilePlan:
+    """``tile_plan`` for the card ``dev``: its SM count, and C halved while
+    the card cannot hold the launch's clusters all at once (a cluster
+    lives inside one GPC, so fewer fit than SMs / C; a cluster that
+    queues doubles the launch's time), never below what S_t needs.  A
+    launch the card still refuses raises."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = tile_plan(S_t, n_streams, sms)
+    while (plan.C > tile_min_cluster(S_t)
+           and tile_cluster_occupancy(plan, n_streams, refill, dev)
+           < n_streams):
+        plan = tile_plan(S_t, n_streams, sms, C=plan.C // 2)
+    return plan
+
+
+def _check_tile_class(S_q: int) -> None:
+    if S_q < TILE_LANES[-1]:
+        raise ValueError(f"the cluster tile fill takes S_q >= "
+                         f"{TILE_LANES[-1]}")
+
+
+def _tile_ckpt(wrapper, qseq, tgt, K, tile, score, plan=None):
     dev = _check_codes(qseq, tgt, K)
     _check_tile(tile)
     if dev.type == "cpu":
@@ -697,39 +830,43 @@ def _tile_ckpt(wrapper, qseq, tgt, K, tile, streamed, score):
     B, S_q = qseq.shape
     S_t = tgt.shape[1]
     n = B // K
+    _check_tile_class(S_q)
     ckpt = torch.empty((n, _n_tiles(S_q, S_t, K, tile), 4, S_t),
                        dtype=torch.int32, device=dev)
     if n:
-        lib = _kernels()
-        scratch = _scratch(lib, K, S_q, S_t, n, dev)
-        _launch(wrapper, dev, lib.sedef_tile_ckpt, qseq.data_ptr(),
-                tgt.data_ptr(), ckpt.data_ptr(), _ptr(scratch), n, K, S_q,
-                S_t, tile, int(streamed), *score,
-                _threads(n, min(K * S_q, S_t)))
+        plan = plan or tile_plan_on(dev, S_t, n, False)
+        _launch(wrapper, dev, _kernels().sedef_tile_ckpt, qseq.data_ptr(),
+                tgt.data_ptr(), ckpt.data_ptr(), n, K, S_q, S_t, tile,
+                *score, *plan)
     return ckpt
 
 
 def tile_checkpoint(qseq: torch.Tensor, tgt: torch.Tensor, tile: int,
                     match: int = 5, mis: int = -4, gapo: int = 40,
-                    gape: int = 1) -> torch.Tensor:
+                    gape: int = 1, *, plan: TilePlan | None = None
+                    ) -> torch.Tensor:
     """Checkpoint pass of the tiled route: the state entering each
-    ``tile``-row tile, (B, n_tiles, 4, S_t) int32 (u, y, x, v).  Launches
-    the checkpoint fill of ``csrc/wavefront_fill.cu`` on a CUDA tensor (or
-    raises); ``tile_checkpoint_torch`` on a CPU tensor."""
-    return _tile_ckpt(tile_checkpoint, qseq, tgt, 1, tile, False,
-                      (match, mis, gapo, gape))
+    ``tile``-row tile, (B, n_tiles, 4, S_t) int32 (u, y, x, v), defined on
+    the lanes of the band of the row before the tile.  Launches the
+    cluster tile fill ``csrc/tile_fill_cluster.cu`` on a CUDA tensor (or
+    raises), under ``plan`` or the card's ``tile_plan_on``;
+    ``tile_checkpoint_torch`` on a CPU tensor."""
+    return _tile_ckpt(tile_checkpoint, qseq, tgt, 1, tile,
+                      (match, mis, gapo, gape), plan)
 
 
 def tile_checkpoint_streamed(qseq: torch.Tensor, tgt: torch.Tensor, K: int,
                              tile: int, match: int = 5, mis: int = -4,
-                             gapo: int = 40, gape: int = 1) -> torch.Tensor:
+                             gapo: int = 40, gape: int = 1, *,
+                             plan: TilePlan | None = None) -> torch.Tensor:
     """``tile_checkpoint`` over B // K streams of K problems:
-    (B // K, n_tiles, 4, S_t) int32."""
-    return _tile_ckpt(tile_checkpoint_streamed, qseq, tgt, K, tile, True,
-                      (match, mis, gapo, gape))
+    (B // K, n_tiles, 4, S_t) int32; the same kernel, K problems chained
+    in a cluster's lanes."""
+    return _tile_ckpt(tile_checkpoint_streamed, qseq, tgt, K, tile,
+                      (match, mis, gapo, gape), plan)
 
 
-def _tile_refill(wrapper, qseq, tgt, ckpt, ti, K, tile, streamed, score):
+def _tile_refill(wrapper, qseq, tgt, ckpt, ti, K, tile, score, plan=None):
     dev = _check_codes(qseq, tgt, K)
     _check_tile(tile)
     _check(ckpt, torch.int32, 4, "ckpt")
@@ -743,35 +880,38 @@ def _tile_refill(wrapper, qseq, tgt, ckpt, ti, K, tile, streamed, score):
                          f"not match {n} streams of {n_tiles} tiles")
     if dev.type == "cpu":
         return tile_refill_torch(qseq, tgt, ckpt, ti, tile, K, *score)
+    _check_tile_class(S_q)
     p_tile = torch.empty((n, tile, S_t), dtype=torch.uint8, device=dev)
     if n:
-        lib = _kernels()
-        scratch = _scratch(lib, K, S_q, S_t, n, dev)
-        _launch(wrapper, dev, lib.sedef_tile_refill, qseq.data_ptr(),
-                tgt.data_ptr(), ckpt.data_ptr(), p_tile.data_ptr(),
-                _ptr(scratch), n, K, S_q, S_t, tile, ti, int(streamed),
-                *score, _threads(n, min(K * S_q, S_t)))
+        plan = plan or tile_plan_on(dev, S_t, n, True)
+        _launch(wrapper, dev, _kernels().sedef_tile_refill, qseq.data_ptr(),
+                tgt.data_ptr(), ckpt.data_ptr(), p_tile.data_ptr(), n, K,
+                S_q, S_t, tile, ti, *score, *plan)
     return p_tile
 
 
 def tile_refill(qseq: torch.Tensor, tgt: torch.Tensor, ckpt: torch.Tensor,
                 ti: int, tile: int, match: int = 5, mis: int = -4,
-                gapo: int = 40, gape: int = 1) -> torch.Tensor:
+                gapo: int = 40, gape: int = 1, *,
+                plan: TilePlan | None = None) -> torch.Tensor:
     """Direction rows of tile ``ti`` recomputed from ``tile_checkpoint``'s
-    output: (B, tile, S_t) uint8.  Launches the refill of
-    ``csrc/wavefront_fill.cu`` on a CUDA tensor (or raises);
+    output: (B, tile, S_t) uint8, defined on each row's band lanes.
+    Launches the cluster tile fill ``csrc/tile_fill_cluster.cu`` on a CUDA
+    tensor (or raises), under ``plan`` or the card's ``tile_plan_on``;
     ``tile_refill_torch`` on a CPU tensor."""
-    return _tile_refill(tile_refill, qseq, tgt, ckpt, ti, 1, tile, False,
-                        (match, mis, gapo, gape))
+    return _tile_refill(tile_refill, qseq, tgt, ckpt, ti, 1, tile,
+                        (match, mis, gapo, gape), plan)
 
 
 def tile_refill_streamed(qseq: torch.Tensor, tgt: torch.Tensor,
                          ckpt: torch.Tensor, ti: int, K: int, tile: int,
                          match: int = 5, mis: int = -4, gapo: int = 40,
-                         gape: int = 1) -> torch.Tensor:
-    """``tile_refill`` over B // K streams of K problems."""
+                         gape: int = 1, *, plan: TilePlan | None = None
+                         ) -> torch.Tensor:
+    """``tile_refill`` over B // K streams of K problems; the same
+    kernel."""
     return _tile_refill(tile_refill_streamed, qseq, tgt, ckpt, ti, K, tile,
-                        True, (match, mis, gapo, gape))
+                        (match, mis, gapo, gape), plan)
 
 
 def _check_walk(p, ql, tl, B: int) -> torch.device:

@@ -13,7 +13,8 @@ NumPy reference's) and, on ``cuda``, the time and rate of one launch at
 the harness shape (L = 1024, B = 64, random codes) and at a card-filling
 batch (B = 1056, eight blocks per SM of an H100).  Then it times the
 streamed fill against the direct fill over batch size and problems per
-stream, and the tiled route against the direct fill at 10 Kbp.  With
+stream, and the cluster tile fill over cluster size and rows per cluster
+barrier beside the direct fill at 4, 10 and 60 Kbp.  With
 ``--device cpu`` it runs the correctness half on the plain versions and
 prints no times.
 
@@ -143,20 +144,102 @@ def bench_streamed(device, log=print) -> None:
         log(f"({S},{S}), {B:<12d} " + " ".join(cells))
 
 
-def bench_tiled(device, S: int = 10240, B: int = 4, log=print) -> None:
-    """The tiled route (checkpoint fill, then per tile a refill and a
-    walk) against the direct fill and traceback of the same problems."""
-    q, t = random_codes(B, S, S, device)
-    ln = torch.full((B,), S, dtype=torch.int32, device=device)
-    tile = 4096
+# (S_q, S_t, B, K): B problems in streams of K (K = 1: the plain pair)
+TILED_SHAPES = ((4096, 4096, 4, 1), (10240, 10240, 4, 1),
+                (10240, 10240, 1, 1), (10240, 10240, 16, 2),
+                (61440, 61440, 1, 1))
+TILED_CLUSTERS = (1, 2, 4, 8, 16)
+TILED_ROWS_PER_BARRIER = (1, 8, 32)
+
+
+def tiled_plans(S_t: int, B: int, sms: int) -> dict:
+    """{(C, N): the cluster tile fill's plan, or None where C blocks cannot
+    hold S_t lanes} over the table's grid."""
+    out = {}
+    for N in TILED_ROWS_PER_BARRIER:
+        for C in TILED_CLUSTERS:
+            try:
+                out[C, N] = wf.tile_plan(S_t, B, sms, N=N, C=C)
+            except ValueError:
+                out[C, N] = None
+    return out
+
+
+def bench_tiled(device, shapes=TILED_SHAPES, log=print, timer=None) -> dict:
+    """The cluster tile fill over its plan: ms of one checkpoint pass and
+    of the refill of a middle tile, per cluster size C and rows per
+    cluster barrier N (N = 1: a barrier per row) and, at the card's own C
+    and N, per lanes a thread, beside the direct fill of the same problems
+    and the whole tiled route under the card's own plan.  ``timer(fn, n,
+    warm)`` defaults to ``time_launches``.  Returns {(S_q, S_t, B, K):
+    {"direct": ms, "route": ms, "plan": TilePlan, ("ckpt" | "refill", C,
+    N): ms, ("ckpt" | "refill", "lanes", n): ms}}."""
+    timer = timer or time_launches
+    dev = torch.device(device)
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
     sc = (5, -4, 40, 1)
-    direct = time_launches(
-        lambda: wf.backtrack_pack(wf.wavefront_fill(q, t), ln, ln), 2, 1)
-    tiled = time_launches(
-        lambda: wf.WavefrontAligner._solve_tiled(q, t, ln, ln, 1, tile, sc),
-        2, 1)
-    log(f"tiled route against direct, ({S},{S}) B={B} tile={tile}: direct "
-        f"{direct:.3f} ms, tiled {tiled:.3f} ms ({tiled / direct:.2f}x)")
+    table = {}
+    for S_q, S_t, B, K in shapes:
+        n = B // K
+        q, t = random_codes(B, S_q, S_t, device)
+        ln_q = torch.full((B,), S_q, dtype=torch.int32, device=device)
+        ln_t = torch.full((B,), S_t, dtype=torch.int32, device=device)
+        n_rows = K * S_q + S_t - 1
+        tile = 4096 if S_q + S_t - 1 >= 4096 else 1024
+        ti = -(-n_rows // tile) // 2
+        if K == 1:
+            def ckpt_fn(plan=None):
+                return wf.tile_checkpoint(q, t, tile, plan=plan)
+
+            def refill_fn(ckpt, plan=None):
+                return wf.tile_refill(q, t, ckpt, ti, tile, plan=plan)
+        else:
+            def ckpt_fn(plan=None):
+                return wf.tile_checkpoint_streamed(q, t, K, tile, plan=plan)
+
+            def refill_fn(ckpt, plan=None):
+                return wf.tile_refill_streamed(q, t, ckpt, ti, K, tile,
+                                               plan=plan)
+        own = (wf.tile_plan_on(dev, S_t, n, False) if dev.type == "cuda"
+               else wf.tile_plan(S_t, n, sms))
+        row = {"plan": own,
+               "direct": timer(lambda: wf.wavefront_fill(q, t), 2, 1),
+               "route": timer(lambda: wf.WavefrontAligner._solve_tiled(
+                   q, t, ln_q, ln_t, K, tile, sc), 2, 1)}
+        ckpt = ckpt_fn()
+        for (C, N), plan in tiled_plans(S_t, n, sms).items():
+            if plan is None:
+                continue
+            row["ckpt", C, N] = timer(lambda: ckpt_fn(plan), 2, 1)
+            row["refill", C, N] = timer(lambda: refill_fn(ckpt, plan), 3, 1)
+        for lanes in wf.TILE_LANES:
+            if own.W > wf.TILE_THREADS * lanes:
+                continue
+            plan = own._replace(lanes=lanes)
+            row["ckpt", "lanes", lanes] = timer(lambda: ckpt_fn(plan), 2, 1)
+            row["refill", "lanes", lanes] = timer(
+                lambda: refill_fn(ckpt, plan), 3, 1)
+        table[S_q, S_t, B, K] = row
+        log(f"tiled ({S_q},{S_t}) B={B} K={K} tile={tile}: direct fill "
+            f"{row['direct']:.3f} ms; tiled route {row['route']:.3f} ms "
+            f"under C={own.C} W={own.W} lanes={own.lanes} N={own.N}; ms per "
+            f"launch over C:")
+        log(f"{'':18s}" + " ".join(f"{'C=' + str(C):>10s}"
+                                   for C in TILED_CLUSTERS))
+        for what in ("ckpt", "refill"):
+            for N in TILED_ROWS_PER_BARRIER:
+                cells = [f"{row[what, C, N]:10.3f}" if (what, C, N) in row
+                         else f"{'-':>10s}" for C in TILED_CLUSTERS]
+                name = "checkpoint" if what == "ckpt" else f"refill t{ti}"
+                log(f"{name + ' N=' + str(N):18s}" + " ".join(cells))
+        for what in ("ckpt", "refill"):
+            cells = [f"{n} lanes {row[what, 'lanes', n]:.3f}"
+                     for n in wf.TILE_LANES if (what, "lanes", n) in row]
+            name = "checkpoint" if what == "ckpt" else f"refill t{ti}"
+            log(f"{name} at C={own.C} N={own.N} over lanes a thread: "
+                + ", ".join(cells))
+    return table
 
 
 def main(argv=None) -> int:

@@ -143,14 +143,24 @@ def test_streamed_fill_matches_plain(dev, S_q, S_t, K, n):
                     == wf.backtrack_np(p_np, len(qq), len(tt))), b
 
 
+# the cluster tile fill splits a stream over C blocks: C = 1 at (256,256), 2
+# at (1024,512), 16 at (1024,9216) and (4096,4096), 8 at (8192,2048);
+# (640,1036) and (512,2050) have S_t no multiple of 4 * C, the second no
+# multiple of 4
 @pytest.mark.parametrize("streamed", [False, True])
 @pytest.mark.parametrize("S_q,S_t,K,n,tile", [(256, 256, 3, 2, 128),
                                               (1024, 512, 2, 3, 1024),
-                                              (1024, 9216, 1, 2, 4096)])
+                                              (1024, 9216, 1, 2, 4096),
+                                              (4096, 4096, 1, 2, 4096),
+                                              (8192, 2048, 1, 3, 4096),
+                                              (640, 1036, 1, 3, 256),
+                                              (512, 2050, 1, 2, 1024)])
 def test_tiled_kernels_match_plain(dev, streamed, S_q, S_t, K, n, tile):
     """Checkpoint, refill and tile traceback each against their plain
     versions on the same inputs, and the tiled route's packed ops against
     the direct route's."""
+    if streamed and K == 1:
+        K = 2
     if not streamed:
         n, K = n * K, 1
     rng = np.random.default_rng(S_q * 3 + S_t + K)
@@ -193,6 +203,72 @@ def test_tiled_kernels_match_plain(dev, streamed, S_q, S_t, K, n, tile):
         n0[0], n0[1] + n_tiles, n0[2] + n_tiles]
     direct = wf.backtrack_pack(wf.wavefront_fill(q, t), qlt, tlt)
     assert torch.equal(out_k, direct)
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("C,N,lanes", [(1, 1, 2), (1, 16, 4), (2, 2, 1),
+                                       (4, 8, 2), (8, 32, 1), (16, 16, 4),
+                                       (16, 1, 1), (2, 32, 4), (8, 8, 2)])
+def test_cluster_tile_fill_under_every_plan(dev, C, N, lanes, K):
+    """The checkpoint pass and the refill under forced plans (cluster size
+    C, rows per cluster barrier N, lanes a thread), plain and over streams
+    of K, write the plain versions' band bytes; each call is one launch."""
+    S_q, S_t, tile, n = 1536, 2048, 512, 3
+    rng = np.random.default_rng(C * 100 + N + K + lanes)
+    qs, ts, _, _, _ = _batch(rng, S_q, S_t, n * K)
+    q, t = _on_card(dev, qs, ts)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = wf.tile_plan(S_t, n, sms, N=N, C=C, lanes=lanes)
+    assert wf.tile_cluster_occupancy(plan, n, False, dev) >= 1
+    assert wf.tile_cluster_occupancy(plan, n, True, dev) >= 1
+    if K == 1:
+        fns = (wf.tile_checkpoint, wf.tile_refill)
+        ck_k = fns[0](q, t, tile, plan=plan)
+    else:
+        fns = (wf.tile_checkpoint_streamed, wf.tile_refill_streamed)
+        ck_k = fns[0](q, t, K, tile, plan=plan)
+    n0 = [f.launches for f in fns]
+    ck_p = wf.tile_checkpoint_torch(q, t, tile, K)
+    for ti in range(1, ck_k.shape[1]):
+        m = wf.stream_band(ti * tile - 1, ti * tile, S_q, S_t, K, dev)[0]
+        assert torch.equal(ck_k[:, ti][:, :, m], ck_p[:, ti][:, :, m]), ti
+    n_rows = K * S_q + S_t - 1
+    for ti in range(ck_k.shape[1]):
+        args = (ti, tile) if K == 1 else (ti, K, tile)
+        pt = fns[1](q, t, ck_k, *args, plan=plan)
+        rows = min(tile, n_rows - ti * tile)
+        _assert_band_equal(pt[:, :rows],
+                           wf.tile_refill_torch(q, t, ck_p, ti, tile,
+                                                K)[:, :rows],
+                           ti * tile, S_q, S_t, K)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [n0[0], n0[1] + ck_k.shape[1]]
+
+
+def test_refused_cluster_launch_raises(dev):
+    """A cluster the card cannot schedule (32 blocks; the largest is 16)
+    never runs: the wrapper raises and counts no launch; it does not fall
+    back to another kernel."""
+    rng = np.random.default_rng(1)
+    qs, ts, _, _, _ = _batch(rng, 512, 2048, 1)
+    q, t = _on_card(dev, qs, ts)
+    bad = wf.TilePlan(32, 64, 1, 16, 64)
+    assert wf.tile_cluster_occupancy(bad, 1, False, dev) == 0
+    n0 = (wf.tile_checkpoint.launches, wf.tile_refill.launches)
+    with pytest.raises(RuntimeError):
+        wf.tile_checkpoint(q, t, 512, plan=bad)
+    ck = wf.tile_checkpoint(q, t, 512)
+    with pytest.raises(RuntimeError):
+        wf.tile_refill(q, t, ck, 0, 512, plan=bad)
+    with pytest.raises(RuntimeError):   # 64 lanes a block hold 1024 of 2048
+        wf.tile_checkpoint(q, t, 512, plan=wf.TilePlan(16, 64, 1, 16, 64))
+    torch.cuda.synchronize()
+    assert (wf.tile_checkpoint.launches, wf.tile_refill.launches) == (
+        n0[0] + 1, n0[1])
+    # a wider class than 16 blocks of 4096 lanes hold raises before launch
+    wide = torch.zeros((1, 16 * 4096 + 4), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        wf.tile_checkpoint(q, wide, 512)
 
 
 def test_cuda_aligner_takes_every_route(dev):

@@ -185,3 +185,55 @@ def test_kbench_cuda_without_card_exits_nonzero(monkeypatch):
     with pytest.raises(SystemExit) as e:
         kbench.main(["--device", "cuda", "base"])
     assert e.value.code not in (0, None)
+
+
+def test_tiled_plans_grid():
+    """The tiled table's grid: a plan per (C, N), None where C blocks of
+    4096 lanes cannot hold the class."""
+    plans = kbench.tiled_plans(10240, 4, 132)
+    assert set(plans) == {(C, N) for C in kbench.TILED_CLUSTERS
+                          for N in kbench.TILED_ROWS_PER_BARRIER}
+    assert plans[1, 8] is None and plans[2, 32] is None
+    assert plans[4, 8] == wf.TilePlan(4, 2560, 4, 8, 32)
+    assert plans[16, 1] == wf.TilePlan(16, 640, 2, 1, 4)
+    assert all(p is None for (C, _), p in
+               kbench.tiled_plans(61440, 1, 132).items() if C < 16)
+    assert all(p is not None for p in
+               kbench.tiled_plans(4096, 4, 132).values())
+
+
+def test_bench_tiled_cpu_path():
+    """``bench_tiled`` on the CPU with a counting timer: every feasible
+    plan goes through the wrappers (the plain versions here), the table has
+    a checkpoint and a refill cell per plan, and no kernel is launched."""
+    calls = []
+
+    def timer(fn, n, warm):
+        fn()
+        calls.append(n)
+        return float(len(calls))
+
+    lines = []
+    n0 = (wf.tile_checkpoint.launches, wf.tile_refill.launches)
+    table = kbench.bench_tiled("cpu", shapes=((96, 64, 2, 1), (64, 32, 4, 2)),
+                               log=lines.append, timer=timer)
+    assert set(table) == {(96, 64, 2, 1), (64, 32, 4, 2)}
+    row = table[96, 64, 2, 1]
+    feasible = [k for k, p in kbench.tiled_plans(64, 2, 132).items() if p]
+    assert len(feasible) == 15
+    for key in table:
+        for C, N in feasible:
+            assert table[key]["ckpt", C, N] > 0
+            assert table[key]["refill", C, N] > 0
+    assert row["plan"] == wf.tile_plan(64, 2, 132)
+    assert all(row[what, "lanes", n] > 0 for what in ("ckpt", "refill")
+               for n in wf.TILE_LANES)
+    assert len(calls) == 2 * (2 + 2 * len(feasible) + 6)
+    assert (wf.tile_checkpoint.launches, wf.tile_refill.launches) == n0
+    assert lines[0].startswith("tiled (96,64) B=2 K=1 tile=1024")
+    assert lines[8].startswith("checkpoint at C=1 N=32 over lanes a thread: "
+                               "1 lanes ")
+    assert lines[10].startswith("tiled (64,32) B=4 K=2 tile=1024")
+    assert lines[1].split() == [f"C={C}" for C in kbench.TILED_CLUSTERS]
+    assert [ln.split()[0] for ln in lines[2:8]] == ["checkpoint"] * 3 + [
+        "refill"] * 3
