@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (``sedef_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--spread N] [--profile]
+    python3 chip_smoke.py [--spread N] [--profile] [--main-only]
 
 Phases, one line each or more (any failure exits non-zero, with no result
 line):
@@ -11,15 +11,20 @@ line):
    checkout's sources;
 3. every kernel against its plain PyTorch version on the card, at the
    size classes stage 2b produces (plus one 60 Kbp chunk problem on the
-   direct and the tiled route; for the cluster tile fill the line names
-   its plan: cluster size C, lanes per block W, rows per cluster barrier
-   N, and the clusters the card holds at once; past 10 tiles the plain
-   refill and walk run on every third tile): 0 mismatching direction
-   bytes on every
-   written lane, 0 mismatching checkpoint words, packed-op bytes and walker
-   states, and CIGARs equal to the NumPy reference on a subset; every fill
-   variant against the plain fill on the variant harness's golden problem
-   and at (1024,1024,64), then timed there and at a card-filling batch;
+   direct and the tiled route, whose plain fill runs once for both; a
+   direct line names the fill's plan:
+   organisation, cluster size C, lanes per block W, lanes a thread,
+   problems a block; a tiled line the cluster tile fill's: C, W, rows per
+   cluster barrier N, and the clusters the card holds at once; past 10
+   tiles the plain refill and walk run on every third tile): 0
+   mismatching direction bytes on every written lane, 0 mismatching
+   checkpoint words, packed-op bytes and walker states, and CIGARs equal
+   to the NumPy reference on a subset; every organisation the direct
+   fill's plan can choose, forced at a small shape, and the walker under
+   every walk plan, on walkers that leave on the left and the top edge and
+   on a class whose width is no multiple of 16; every fill variant against
+   the plain fill on the variant harness's golden problem and at
+   (1024,1024,64), then timed there and at a card-filling batch;
 4. the calibration path, through its entry points: the variant harness
    (``sedef_tpu_torch.tools.kbench``) and ``devcal`` (dispatch cost of one
    launch group, the host's DP rate, the derived batch floors, and the
@@ -31,10 +36,14 @@ line):
    must give the same aligned.bed and final.bed bytes as the host route
    (every gap DP on the native scalar DP, the reference package's CPU
    route), and kernels 1-9 must have been launched by the card runs, the
-   variant kernel by the calibration path;
+   variant kernel by the calibration path; a ``[main]`` line per run
+   gives, per route and size class, the launch groups and the median and
+   the most problems of a group;
 6. with ``--spread N``: N timed runs per route and genome, routes
    alternated; with ``--profile``: a ``torch.profiler`` trace of each card
-   run (device busy time, kernels, copies).
+   run (device busy time, kernels, copies); with ``--main-only``: phases 1,
+   2, 5 and 6 alone (the walls of one tree, to set beside another's on
+   the same card and host; no kernel summary and no result line).
 
 Each kernel's bound in the summary is the larger of its integer operations
 over the card's int32 peak (SMs x 64 lanes x the SM clock ``nvidia-smi``
@@ -65,6 +74,8 @@ SRC_CLUSTER = "sedef_tpu_torch/csrc/tile_fill_cluster.cu"
 REF = "sedef_tpu/ops/wavefront.py"
 # kernel wrapper -> (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
+    # its warp and owned-lane fills (the latter's kernel in fill_owned.cuh);
+    # few problems of a class from 4,096 lanes on launch SRC_CLUSTER's
     "wavefront_fill": (SRC_FILL, f"{REF}:240"),
     "backtrack_pack": (SRC_TRACE, f"{REF}:387"),
     "wavefront_fill_streamed": (SRC_FILL, f"{REF}:679"),
@@ -79,9 +90,27 @@ KERNELS = {
 MAIN_PATH_KERNELS = [k for k in KERNELS if k != "wavefront_fill_variant"]
 
 # (S_q, S_t, B) of the direct route: the classes of stage 2b's gap DPs and
-# side extensions, a dp_indel-sized class, one 60 Kbp chunk problem
-SHAPES = [(128, 128, 256), (256, 1024, 64), (1024, 1024, 64),
-          (2048, 512, 64), (8192, 8192, 2), (61440, 61440, 1)]
+# side extensions (class 128 at a small, a usual and a card-filling launch
+# group), a dp_indel-sized class, one 60 Kbp chunk problem
+SHAPES = [(128, 128, 32), (128, 128, 256), (128, 128, 4096),
+          (256, 1024, 64), (1024, 1024, 64), (2048, 512, 64),
+          (2048, 2048, 32), (8192, 8192, 2), (61440, 61440, 1)]
+# (S_q, S_t, B, plan) that force every organisation of the direct fill
+FORCED_FILLS = [(128, 128, 40, dict(org="warp", per_block=4)),
+                (100, 90, 37, dict(org="warp", per_block=8)),
+                (128, 128, 9, dict(org="owned")),
+                (256, 1024, 9, dict(org="owned")),
+                (2048, 512, 5, dict(org="owned")),
+                (1024, 1024, 3, dict(org="owned", N=2)),
+                (1024, 1024, 3, dict(org="cluster", C=1, lanes=4)),
+                (1024, 1024, 3, dict(org="cluster", C=2)),
+                (640, 1036, 3, dict(org="cluster", C=4)),
+                (512, 2048, 2, dict(org="cluster", C=8)),
+                (512, 4096, 2, dict(org="cluster", C=16))]
+# (S_q, S_t, B, tile, lengths) of the walker's edge cases: walkers that
+# leave on the left edge (tl << ql) and on the top edge (ql << tl), and a
+# class width that is no multiple of 16 (narrower copies into the window)
+WALK_EDGES = [(2048, 2048, 8, 1024, "edges"), (1024, 1036, 4, 256, "any")]
 # (S_q, S_t, B) of the streamed route (more than 32 problems of a class at
 # least 1 Kbp wide; the mosaic genome's regions give ~50 of 2 Kbp)
 STREAM_SHAPES = [(1024, 1024, 64), (2048, 2048, 50)]
@@ -104,7 +133,7 @@ for _k in ("tile_checkpoint", "tile_refill", "tile_backtrack"):
     SUMMARY_AT[_k + "_streamed"] = (10240, 10240, 16)
 
 # integer operations per band cell of a fill (6 score, 17 recurrence, 6
-# direction flags: csrc/wavefront_fill.cu's cell), of the checkpoint pass
+# direction flags: csrc/dp_cell.cuh's cell), of the checkpoint pass
 # (no direction flags), and per consumed row of a traceback
 # (csrc/traceback_pack.cu's walk loop)
 OPS_FILL, OPS_CKPT, OPS_WALK = 29, 23, 43
@@ -302,6 +331,10 @@ class KernelPhase:
         self.rng = np.random.default_rng(2024)
         self.summary = {name: {"max_abs_err": 0, "library_ms": None}
                         for name in KERNELS}
+        # shape -> (inputs, plain checkpoints, ms of the plain pass): a
+        # direct shape that the tiled route takes too runs its plain fill
+        # once, for both
+        self.shared = {}
 
     def _record(self, name, shape, worst, ms, plain_ms, ops, nbytes):
         """``ops`` / ``nbytes``: what one launch must do on these inputs
@@ -326,6 +359,8 @@ class KernelPhase:
         for shape in SHAPES:
             self.direct(*shape)
             torch.cuda.empty_cache()
+        self.organisations()
+        self.walk_edges()
         self.variants()
         torch.cuda.empty_cache()
         for shape in STREAM_SHAPES:
@@ -341,10 +376,22 @@ class KernelPhase:
         (qs, ts, ql, tl), (q, t, qlt, tlt) = self._inputs(S_q, S_t, B)
         fk, fp, tk, tp = _Timer(), _Timer(), _Timer(), _Timer()
         reps = 9 if S_t <= 2048 else 1
+        plan = wf.fill_plan_on(self.dev, S_q, S_t, B)
         wf.wavefront_fill(q, t)  # the first, cold launch is not timed
         for _ in range(reps):
             p_k = fk.kernel(lambda: wf.wavefront_fill(q, t))
-        p_p = fp.plain(lambda: wf.wavefront_fill_torch(q, t))
+        if (S_q, S_t, B) in TILED_SHAPES:
+            # one plain pass gives the direction matrix and the tiled
+            # route's checkpoints
+            [(_, K, tile)] = wf.WavefrontAligner(device=self.dev).tiled_parts(
+                list(range(B)), S_q, S_t)
+            p_p = self.torch.empty_like(p_k)
+            ck_p = fp.plain(lambda: wf.tile_checkpoint_torch(q, t, tile, K,
+                                                             p_out=p_p))
+            self.shared[S_q, S_t, B] = ((qs, ts, ql, tl), (q, t, qlt, tlt),
+                                        ck_p, fp.mean)
+        else:
+            p_p = fp.plain(lambda: wf.wavefront_fill_torch(q, t))
         bad, worst = _band_diff(p_k, p_p, 0, S_q, S_t, 1)
         _require(bad, f"fill ({S_q},{S_t})")
         del p_p
@@ -358,7 +405,9 @@ class KernelPhase:
         _check_cigars(wf, qs, ts, ql, tl, o_k.cpu().numpy(), n_np,
                       f"({S_q},{S_t})")
         cells = int((ql.astype(np.int64) * tl).sum())
-        log(f"[kernels] direct ({S_q},{S_t}) B={B}: fill {fk.typical:.3f} ms "
+        log(f"[kernels] direct ({S_q},{S_t}) B={B}: plan {plan.org} "
+            f"C={plan.C} W={plan.W} lanes={plan.lanes} "
+            f"per_block={plan.per_block}; fill {fk.typical:.3f} ms "
             f"(plain {fp.mean:.1f} ms, {cells / fk.typical / 1e6:.2f} GCUPS)"
             f", traceback {tk.typical:.3f} ms (plain {tp.mean:.1f} ms); 0 "
             f"byte mismatches; {n_np} CIGARs = NumPy")
@@ -381,6 +430,93 @@ class KernelPhase:
             log(f"[kernels] direct ({S_q},{S_t}) B={B}: native scalar DP "
                 f"on the host {native_ms:.1f} ms "
                 f"({cells / native_ms / 1e6:.3f} GCUPS)")
+
+    def organisations(self):
+        """Every organisation ``fill_plan`` can choose, forced, against
+        the plain fill on every band lane."""
+        wf, torch = self.wf, self.torch
+        sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
+        seen = set()
+        for S_q, S_t, B, force in FORCED_FILLS:
+            _, (q, t, _, _) = self._inputs(S_q, S_t, B)
+            plan = wf.fill_plan(S_q, S_t, B, sms, **force)
+            got = wf.wavefront_fill(q, t, plan=plan)
+            torch.cuda.synchronize()
+            bad, worst = _band_diff(got, wf.wavefront_fill_torch(q, t), 0,
+                                    S_q, S_t, 1)
+            _require(bad, f"fill ({S_q},{S_t}) under {plan}")
+            self.summary["wavefront_fill"]["max_abs_err"] = max(
+                self.summary["wavefront_fill"]["max_abs_err"], worst)
+            seen.add(plan.org)
+            log(f"[kernels] forced ({S_q},{S_t}) B={B}: {plan.org} "
+                f"C={plan.C} W={plan.W} lanes={plan.lanes} N={plan.N} "
+                f"per_block={plan.per_block}; 0 byte mismatches")
+        if seen != set(wf.FILL_ORGS):
+            raise AssertionError(f"forced fills reached {sorted(seen)} of "
+                                 f"{wf.FILL_ORGS}")
+
+    def walk_edges(self):
+        """The walker under every walk plan, tile by tile, against the
+        plain tile walk, and the whole matrix against the plain
+        traceback."""
+        wf, torch = self.wf, self.torch
+        from sedef_tpu_torch.tools import kbench
+        for S_q, S_t, B, tile, lengths in WALK_EDGES:
+            qs, ts, ql, tl = _random_class(self.rng, S_q, S_t, B)
+            if lengths == "edges":  # half leave on the left, half on top
+                tl[0::2] = self.rng.integers(1, 40, len(tl[0::2]))
+                ql[1::2] = self.rng.integers(1, 40, len(ql[1::2]))
+                for b in range(B):
+                    qs[b, ql[b]:] = 4
+                    ts[b, tl[b]:] = 4
+            q, t, qlt, tlt = (torch.from_numpy(a).to(self.dev)
+                              for a in (qs, ts, ql, tl))
+            p = wf.wavefront_fill(q, t)
+            want = wf.backtrack_pack_torch(p, qlt, tlt)
+            n_rows = p.shape[1]
+            n_tiles = -(-n_rows // tile)
+            plans = kbench.walk_plans(B, 132)
+
+            def tiles():
+                for ti in range(n_tiles - 1, -1, -1):
+                    pt = torch.zeros((B, tile, S_t), dtype=torch.uint8,
+                                     device=self.dev)
+                    rows = min(tile, n_rows - ti * tile)
+                    pt[:, :rows] = p[:, ti * tile:ti * tile + rows]
+                    yield ti, pt
+
+            def walkers():
+                return (torch.stack([tlt - 1, qlt - 1,
+                                     torch.zeros_like(qlt)], 1),
+                        torch.zeros_like(want))
+
+            # the plain walk once: walker states and bytes after every tile
+            ws_p, out_p = walkers()
+            after = {}
+            for ti, pt in tiles():
+                wf.tile_backtrack_torch(pt, qlt, tlt, ws_p, out_p, ti * tile,
+                                        S_q)
+                after[ti] = (ws_p.clone(), out_p.clone())
+            _require(int((out_p != want).sum()),
+                     f"plain tiled ops ({S_q},{S_t})")
+            for plan in plans.values():
+                got = wf.backtrack_pack(p, qlt, tlt, plan=plan)
+                _require(int((got != want).sum()),
+                         f"traceback ({S_q},{S_t}) under {plan}")
+                ws_k, out_k = walkers()
+                for ti, pt in tiles():
+                    wf.tile_backtrack(pt, qlt, tlt, ws_k, out_k, ti * tile,
+                                      S_q, plan=plan)
+                    _require(int((ws_k != after[ti][0]).sum())
+                             + int((out_k != after[ti][1]).sum()),
+                             f"tile walk ({S_q},{S_t}) tile {ti} under "
+                             f"{plan}")
+            _check_cigars(wf, qs, ts, ql, tl, want.cpu().numpy(),
+                          min(B, NUMPY_CHECK_N), f"edges ({S_q},{S_t})")
+            log(f"[kernels] walker ({S_q},{S_t}) B={B} tile={tile} "
+                f"{lengths}: {len(plans)} walk plans "
+                f"({', '.join(plans)}); 0 mismatches in packed ops and "
+                f"walker states, whole matrix and {n_tiles} tiles")
 
     def streamed(self, S_q, S_t, B):
         wf, np = self.wf, self.np
@@ -476,13 +612,21 @@ class KernelPhase:
         names = [n + sfx for n in ("tile_checkpoint", "tile_refill",
                                    "tile_backtrack")]
         ckpt_fn, refill_fn, walk_fn = (getattr(wf, n) for n in names)
-        (qs, ts, ql, tl), (q, t, qlt, tlt) = self._inputs(S_q, S_t, B)
+        shared = self.shared.pop((S_q, S_t, B), None)
+        if shared:
+            (qs, ts, ql, tl), (q, t, qlt, tlt), ck_p, plain_ms = shared
+        else:
+            (qs, ts, ql, tl), (q, t, qlt, tlt) = self._inputs(S_q, S_t, B)
         kargs = (K, tile) if streamed else (tile,)
         timers = {n: (_Timer(), _Timer()) for n in names}
         plan = wf.tile_plan_on(self.dev, S_t, B // K, False)
         held = [wf.tile_cluster_occupancy(plan, B // K, refill, self.dev)
                 for refill in (False, True)]
-        plan_note = (f" {B // K} clusters of C={plan.C} W={plan.W} "
+        wplan = wf.walk_plan(B, torch.cuda.get_device_properties(
+            self.dev).multi_processor_count)
+        plan_note = (f" walkers R={wplan.R} pw={wplan.pw} "
+                     f"prefetch={wplan.prefetch} warps={wplan.warps};"
+                     f" {B // K} clusters of C={plan.C} W={plan.W} "
                      f"lanes={plan.lanes} N={plan.N} ring={plan.ring} "
                      f"smem={plan.smem_bytes} B,"
                      f" max active clusters {held[0]} (checkpoint) / "
@@ -490,8 +634,11 @@ class KernelPhase:
         ckpt_fn(q, t, *kargs)  # the first, cold launch is not timed
         for _ in range(3):
             ck_k = timers[names[0]][0].kernel(lambda: ckpt_fn(q, t, *kargs))
-        ck_p = timers[names[0]][1].plain(
-            lambda: wf.tile_checkpoint_torch(q, t, tile, K))
+        if shared:
+            timers[names[0]][1]._add(plain_ms)
+        else:
+            ck_p = timers[names[0]][1].plain(
+                lambda: wf.tile_checkpoint_torch(q, t, tile, K))
         ck_bad = ck_worst = 0
         for ti in range(1, ck_k.shape[1]):
             m = wf.stream_band(ti * tile - 1, ti * tile, S_q, S_t, K,
@@ -766,6 +913,8 @@ def _run(fa, out_dir, al):
 
 
 def phase_main_path(genomes, tmp):
+    import statistics
+
     from sedef_tpu_torch.models.genome_sim import recall_of
     from sedef_tpu_torch.ops import wavefront as wf
     _zero_counts()
@@ -803,6 +952,12 @@ def phase_main_path(genomes, tmp):
             f"groups, launches {counts}; aligned.bed "
             f"{len(out['aligned'].splitlines())} rows and final.bed = host "
             f"route's; {len(rows)} final SDs, recall {rec}/{len(planted)}")
+        log(f"[main] {run} launch groups (route (S_q,S_t): groups, median "
+            f"/ most problems a group): " + "; ".join(
+                f"{route} ({S_q},{S_t}): {len(g)}, "
+                f"{statistics.median(g):g} / {max(g)}"
+                for (route, S_q, S_t), g in sorted(
+                    getattr(al, "launch_groups", {}).items())))
     missing = [n for n in MAIN_PATH_KERNELS if launches[n] <= 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
@@ -863,12 +1018,16 @@ def main() -> int:
                     help="timed runs per route and genome (default 0)")
     ap.add_argument("--profile", action="store_true",
                     help="trace each card run with torch.profiler")
+    ap.add_argument("--main-only", action="store_true",
+                    help="build and the main path alone: no kernel phase, "
+                         "no calibration phase, no result line")
     args = ap.parse_args()
     phase_device()
     import torch
     phase_build()
-    summary = KernelPhase().run()
-    calibration = phase_calibration()
+    if not args.main_only:
+        summary = KernelPhase().run()
+        calibration = phase_calibration()
     with tempfile.TemporaryDirectory() as tmp:
         genomes = _genomes(tmp)
         launches = phase_main_path(genomes, tmp)
@@ -876,6 +1035,8 @@ def main() -> int:
             phase_spread(genomes, tmp, args.spread)
         if args.profile:
             phase_profile(genomes, tmp)
+    if args.main_only:
+        return 0
     # launches: the main path's for kernels 1-9, the calibration path's
     # for the variant kernel (the path that runs it)
     kernels = [{"name": name, "route": "cuda", "source": src,

@@ -1,10 +1,15 @@
-// The tiled route's two fills, plain and streamed, one stream's lanes split
-// over the blocks of a thread-block cluster.
+// The tiled route's two fills, plain and streamed, and the direct fill of
+// few problems of a wide class: one stream's lanes split over the blocks of
+// a thread-block cluster.
 //
 // Replaces _ckpt_pass and _refill_tile of sedef_tpu/ops/wavefront.py (the
-// TPU kernels behind tile_checkpoint and tile_refill) and, with K > 1
-// problems per stream, _ckpt_pass_pipe and _refill_tile_pipe
-// (tile_checkpoint_streamed, tile_refill_streamed).  The recurrence is the
+// TPU kernels behind tile_checkpoint and tile_refill), with K > 1
+// problems per stream _ckpt_pass_pipe and _refill_tile_pipe
+// (tile_checkpoint_streamed, tile_refill_streamed), and, run from the zero
+// state over all S_q + S_t - 1 rows straight into the direction matrix,
+// wavefront_pallas_batch (wavefront_fill; sedef_fill_cluster below: no
+// checkpoint is read or written, and the row count need not be even).  The
+// recurrence is the
 // one in the docstring of sedef_tpu_torch/ops/wavefront.py; the stream
 // layout is wavefront_fill.cu's: stream row r, lane t belongs to problem
 // k = m / S_q at query index j = m % S_q, m = r - t, for 0 <= m < Q =
@@ -23,7 +28,11 @@
 // per launch, so with one block per stream a 10 Kbp class runs on 4 to 8 of
 // the card's SMs and a 60 Kbp chunk on one, and from S_t = 10,240 on the
 // state no longer fits one block's shared memory.  A row's instructions
-// on one SM, not the barrier after it, set the time.
+// on one SM, not the barrier after it, set the time.  The direct fill's
+// launch groups are small too, so from 2,048 lanes on fill_plan gives each
+// of a few problems as many blocks as the card has SMs free (narrower
+// classes are faster in one block of owned lanes, fill_owned.cuh: a block's
+// row costs 0.35-0.48 us here at any width).
 //
 // What the design does about it.
 //  * Lanes over a cluster.  Block c of a cluster of C owns the contiguous
@@ -69,8 +78,10 @@
 //  * Each block stores its own segment of a checkpoint when it reaches a
 //    tile's first row, and a refill loads its segment (and, for c > 0, the
 //    seam value of the row before from lane c * W - 1's planes).
-// The max chains are plain integer max/min: the direction byte needs the
-// strict '>' tests in order, which a DPX max intrinsic does not report.
+// The max chains are plain integer max/min beside the strict '>' tests in
+// order that decide the direction byte (Hopper's __vibmax_s32 returns the
+// maximum and the predicate in one instruction: the variant harness times
+// that form, wavefront_fill_variants.cu).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -86,7 +97,8 @@ using sedef::Score;
 using sedef::WILD;
 using sedef::dp_cell;
 
-enum { MODE_CKPT = 1, MODE_REFILL = 2 };
+// MODE_FULL: a whole fill from the zero state into the direction matrix
+enum { MODE_CKPT = 1, MODE_REFILL = 2, MODE_FULL = 3 };
 
 constexpr int MAX_THREADS = 1024;
 constexpr int MAX_LPT = 4;
@@ -235,7 +247,7 @@ __device__ __forceinline__ void fill_row(int r, int par, const Lanes& L,
     L.SX[slot] = xn[LPT - 1];
     L.SV[slot] = vn[LPT - 1];
   }
-  if (MODE == MODE_REFILL) {
+  if (MODE != MODE_CKPT) {
     if (LPT == 1) {
       prow[L.t0] = (uint8_t)word;
     } else if (L.vec) {
@@ -320,9 +332,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
   // is even, so row r_begin - 1 left x and v in parity plane 1)
   if (mine) {
     const int32_t* ck =
-        ckpt + ((size_t)sidx * n_tiles + (MODE == MODE_REFILL ? r_begin / tile
-                                                              : 0)) *
-                   4 * S_t;
+        MODE == MODE_REFILL
+            ? ckpt + ((size_t)sidx * n_tiles + r_begin / tile) * 4 * S_t
+            : nullptr;
 #pragma unroll
     for (int k = 0; k < LPT; ++k) {
       const int t = L.t0 + k, l = L.l0 + k;
@@ -367,8 +379,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
   // the first row of a tile at or after the block's first row
   int next_ck = (blk_r0 + tile - 1) / tile * tile;
-  uint8_t* pb = p_tile;  // the stream's tile rows, row 0 = r_begin
-  if (MODE == MODE_REFILL) pb += (size_t)sidx * tile * S_t;
+  // the stream's rows, row 0 = r_begin: a tile's, or (MODE_FULL, where
+  // ``tile`` is the whole row count) the problem's direction matrix
+  uint8_t* pb = p_tile;
+  if (MODE != MODE_CKPT) pb += (size_t)sidx * tile * S_t;
 
   auto do_row = [&](int r, int par, int lo, int hi) {
     if (r < lo || r >= hi) return;  // block-uniform
@@ -473,7 +487,8 @@ int launch_as(const TilePlan& pl, const Args& a, int* out) {
   } else {
     const int n_rows = a.K * a.S_q + a.S_t - 1;
     const int n_tiles = (n_rows + a.tile - 1) / a.tile;
-    // the checkpoint pass runs every row, a refill those of tile ``ti``
+    // the checkpoint pass and the whole fill run every row, a refill those
+    // of tile ``ti``
     const int r0 = MODE == MODE_REFILL ? a.ti * a.tile : 0;
     const int r1 = MODE == MODE_REFILL && r0 + a.tile < n_rows ? r0 + a.tile
                                                                : n_rows;
@@ -503,8 +518,13 @@ int run(const TilePlan& pl, const void* qseq, const void* tgt, void* p_tile,
         void* ckpt, int n_streams, int K, int S_q, int S_t, int tile, int ti,
         int match, int mis, int gapo, int gape, void* stream) {
   if (n_streams <= 0) return (int)cudaGetLastError();
-  if (K < 1 || S_q < MAX_LPT || S_t < 1 || tile < 2 || tile % 2 ||
-      (long long)pl.C * pl.W < S_t)
+  // a thread's lanes reach their top rows one after the other (fill_row's
+  // j0 == k), so a problem is at least as long as a thread's group is wide
+  if (K < 1 || S_q < pl.LPT || S_t < 1 || (long long)pl.C * pl.W < S_t)
+    return (int)cudaErrorInvalidValue;
+  if (MODE == MODE_FULL)
+    tile = S_q + S_t - 1;  // one "tile": the direction matrix's rows
+  else if (tile < 2 || tile % 2)
     return (int)cudaErrorInvalidValue;
   const int qe2 = 2 * (gapo + gape);
   const Args a = {static_cast<const int8_t*>(qseq),
@@ -548,16 +568,32 @@ int sedef_tile_refill(const void* qseq, const void* tgt, const void* ckpt,
                           tile, ti, match, mis, gapo, gape, stream);
 }
 
+// The direct fill under the same plan: B problems (qseq (B, S_q), tgt (B,
+// S_t) int8), each from the zero state over all S_q + S_t - 1 rows into p
+// (B, S_q + S_t - 1, S_t) uint8.  C = 1 is one block per problem with owned
+// lanes.
+int sedef_fill_cluster(const void* qseq, const void* tgt, void* p, int B,
+                       int S_q, int S_t, int match, int mis, int gapo,
+                       int gape, int C, int W, int LPT, int N, int ring,
+                       void* stream) {
+  return run<MODE_FULL>({C, W, LPT, N, ring}, qseq, tgt, p, nullptr, B, 1,
+                        S_q, S_t, 0, 0, match, mis, gapo, gape, stream);
+}
+
 // Clusters of the plan's shape that the card can hold at once
 // (cudaOccupancyMaxActiveClusters), into *out; 0 means a launch would be
-// refused.  ``refill`` picks the kernel.  Returns a CUDA error code.
-int sedef_tile_cluster_occupancy(int refill, int n_streams, int C, int W,
+// refused.  ``mode`` picks the kernel: 0 the checkpoint pass, 1 the
+// refill, 2 the whole fill.  Returns a CUDA error code.
+int sedef_tile_cluster_occupancy(int mode, int n_streams, int C, int W,
                                  int LPT, int N, int ring, int* out) {
   const TilePlan pl = {C, W, LPT, N, ring};
   Args a = {};
   a.n_streams = n_streams;
-  return refill ? launch<MODE_REFILL>(pl, a, out)
-                : launch<MODE_CKPT>(pl, a, out);
+  switch (mode) {
+    case 0: return launch<MODE_CKPT>(pl, a, out);
+    case 1: return launch<MODE_REFILL>(pl, a, out);
+    default: return launch<MODE_FULL>(pl, a, out);
+  }
 }
 
 }  // extern "C"

@@ -3,7 +3,7 @@
 //
 // Replaces make_kernel / run of tools/kbench.py (the TPU experiment
 // kernel: base, hoist, unroll*, pack*, reg*, preg*, bspec*).  Every variant
-// computes what sedef_fill of wavefront_fill.cu computes, p (B, S_q + S_t -
+// computes what the direct fill (wavefront_fill) computes, p (B, S_q + S_t -
 // 1, S_t) uint8 with row r = anti-diagonal r and lane t = target index t,
 // and must give the same bytes on every lane of a row's band (0 <= r - t <
 // S_q); the recurrence is the one in the docstring of
@@ -13,17 +13,25 @@
 //
 // Three organisations, one block per problem in each:
 //
-//   base     wavefront_fill.cu's own: state (u, y in place; x, v in two
-//            row-parity planes) and both code strings in shared memory,
-//            threads striding over a row's band, one byte stored per cell,
-//            one __syncthreads() per row.  The yardstick.
-//   hoist    each thread owns four neighbouring lanes for the whole
+//   base     the port's first direct fill (and still the streamed fill's
+//            organisation, wavefront_fill.cu): state (u, y in place; x, v
+//            in two row-parity planes) and both code strings in shared
+//            memory, threads striding over a row's band, one byte stored
+//            per cell, one __syncthreads() per row.  The yardstick.
+//   hoist    (fill_owned.cuh, which the direct fill launches too) each
+//            thread owns four neighbouring lanes for the whole
 //            problem: their target codes and wildcard flags sit in
 //            registers, the state is read and written as one 16-byte
 //            shared-memory word per plane, and the four direction bytes
 //            leave as one 32-bit store.  unroll2 / unroll4 unroll the row
 //            loop (the parity planes become compile-time), still one
 //            barrier per row: lane t needs lane t - 1 of the row before.
+//            vibmax is unroll2 with the cell's two max-and-test steps as
+//            one instruction each: Hopper's __vibmax_s32 returns max(a, b)
+//            and the predicate a >= b, and the strict test "a > z" that
+//            decides a direction bit is the complement of the predicate of
+//            max(z, a).  (__vimax3 and the other DPX maxima report no
+//            predicate and cannot decide the byte.)
 //   reg      u, y, x, v and the travelling query code of the four owned
 //            lanes live in registers; lane t - 1's x, v and code come from
 //            the thread's own registers, from the warp neighbour by
@@ -75,19 +83,21 @@
 #include <string.h>
 
 #include "dp_cell.cuh"
+#include "fill_owned.cuh"
 
 namespace {
 
+using sedef::LPT;
+using sedef::Owned;
 using sedef::Score;
 using sedef::WILD;
 using sedef::dp_cell;
+using sedef::fill_owned;
+using sedef::load_owned;
+using sedef::pack_word;
+using sedef::score_of;
 
-constexpr int LPT = 4;  // lanes a thread owns
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ int pack_word(int x, int v, int q) {
-  return (q << 16) | ((v + 128) << 8) | x;
-}
 
 // ---------------------------------------------------------------------------
 // base
@@ -143,149 +153,6 @@ __global__ void fill_base(const int8_t* __restrict__ qseq,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Owned lanes: target codes of a thread's four lanes, in registers
-// ---------------------------------------------------------------------------
-
-struct Owned {
-  int tc[LPT];
-  bool tw[LPT];
-};
-
-__device__ __forceinline__ Owned load_owned(const int8_t* __restrict__ tg,
-                                            int t0, int S_t) {
-  Owned o;
-#pragma unroll
-  for (int k = 0; k < LPT; ++k) {
-    o.tc[k] = t0 + k < S_t ? tg[t0 + k] : WILD;
-    o.tw[k] = o.tc[k] >= WILD;
-  }
-  return o;
-}
-
-__device__ __forceinline__ int score_of(const Owned& o, int k, int qc,
-                                        const Score& s) {
-  return (o.tw[k] || (unsigned)qc >= (unsigned)WILD)
-             ? 0
-             : (qc == o.tc[k] ? s.match : s.mis);
-}
-
-// ---------------------------------------------------------------------------
-// hoist / unrollN / pack / packuN: state in shared memory, lanes owned
-// ---------------------------------------------------------------------------
-
-// Row r of the thread that owns lanes [t0, t0 + 4).  ``par`` = r & 1 names
-// the parity plane this row writes; it reads the other one.  PACK: plane P
-// holds the packed word and V is unused.
-template <bool PACK>
-__device__ __forceinline__ void own_row(int r, int par, int t0, int S_q,
-                                        int S_t, int32_t* U, int32_t* Y,
-                                        int32_t* P, int32_t* V,
-                                        const int8_t* qs, const Owned& o,
-                                        const Score& s, uint8_t* prow) {
-  const int g = t0 / LPT;
-  const int32_t* Pp = P + (par ^ 1) * S_t;
-  const int32_t* Vp = V + (par ^ 1) * S_t;
-  const int4 u4 = reinterpret_cast<const int4*>(U)[g];
-  const int4 y4 = reinterpret_cast<const int4*>(Y)[g];
-  const int4 p4 = reinterpret_cast<const int4*>(Pp)[g];
-  const int ub4[LPT] = {u4.x, u4.y, u4.z, u4.w};
-  const int yb4[LPT] = {y4.x, y4.y, y4.z, y4.w};
-  // lane t - 1 of the row before, for the four lanes
-  int pl[LPT] = {0, p4.x, p4.y, p4.z};
-  int vl[LPT] = {0, 0, 0, 0};
-  if (!PACK) {
-    const int4 v4 = reinterpret_cast<const int4*>(Vp)[g];
-    vl[1] = v4.x;
-    vl[2] = v4.y;
-    vl[3] = v4.z;
-  }
-  const int v0 = r > 0 ? s.gapo : 0;  // lane -1: (x, v) = (0, j ? q : 0)
-  if (t0 == 0) {
-    if (PACK)
-      pl[0] = pack_word(0, v0, r < S_q ? qs[r] : WILD);
-    else
-      vl[0] = v0;
-  } else {
-    pl[0] = Pp[t0 - 1];
-    if (!PACK) vl[0] = Vp[t0 - 1];
-  }
-  int un[LPT], yn[LPT], pn[LPT], vn[LPT];
-  uint32_t word = 0;
-#pragma unroll
-  for (int k = 0; k < LPT; ++k) {
-    const int t = t0 + k;
-    int qc, xs, vs;
-    if (PACK) {
-      qc = pl[k] >> 16;
-      xs = pl[k] & 0xFF;
-      vs = ((pl[k] >> 8) & 0xFF) - 128;
-    } else {
-      const int j = r - t;
-      qc = (unsigned)j < (unsigned)S_q ? qs[j] : WILD;
-      xs = pl[k];
-      vs = vl[k];
-    }
-    int ub = ub4[k], yb = yb4[k];
-    if (t == r) {  // top row: (u, y) = (t ? q : 0, 0)
-      ub = t > 0 ? s.gapo : 0;
-      yb = 0;
-    }
-    int xn;
-    const int d = dp_cell(score_of(o, k, qc, s), xs, vs, ub, yb, s, un[k],
-                          vn[k], xn, yn[k]);
-    pn[k] = PACK ? pack_word(xn, vn[k], qc) : xn;
-    word |= (uint32_t)d << (8 * k);
-  }
-  reinterpret_cast<int4*>(U)[g] = make_int4(un[0], un[1], un[2], un[3]);
-  reinterpret_cast<int4*>(Y)[g] = make_int4(yn[0], yn[1], yn[2], yn[3]);
-  reinterpret_cast<int4*>(P + par * S_t)[g] =
-      make_int4(pn[0], pn[1], pn[2], pn[3]);
-  if (!PACK)
-    reinterpret_cast<int4*>(V + par * S_t)[g] =
-        make_int4(vn[0], vn[1], vn[2], vn[3]);
-  reinterpret_cast<uint32_t*>(prow)[g] = word;
-}
-
-template <bool PACK, int UNROLL>
-__global__ void fill_owned(const int8_t* __restrict__ qseq,
-                           const int8_t* __restrict__ tgt,
-                           uint8_t* __restrict__ p, int S_q, int S_t,
-                           Score s) {
-  extern __shared__ int4 smem4[];
-  int32_t* smem = reinterpret_cast<int32_t*>(smem4);
-  const int b = blockIdx.x;
-  const int t0 = threadIdx.x * LPT;
-  int32_t* U = smem;
-  int32_t* Y = smem + S_t;
-  int32_t* P = smem + 2 * S_t;                   // x, or the packed word
-  int32_t* V = PACK ? P : smem + 4 * S_t;        // unused when PACK
-  int8_t* qs = reinterpret_cast<int8_t*>(smem + (PACK ? 4 : 6) * S_t);
-  for (int k = threadIdx.x; k < S_t; k += blockDim.x) {
-    U[k] = 0;
-    Y[k] = 0;
-    P[k] = P[S_t + k] = PACK ? pack_word(0, 0, WILD) : 0;
-    if (!PACK) V[k] = V[S_t + k] = 0;
-  }
-  for (int k = threadIdx.x; k < S_q; k += blockDim.x)
-    qs[k] = qseq[(size_t)b * S_q + k];
-  const Owned o = load_owned(tgt + (size_t)b * S_t, t0, S_t);
-  __syncthreads();
-  const int n_rows = S_q + S_t - 1;
-  uint8_t* pb = p + (size_t)b * n_rows * S_t;
-  for (int rb = 0; rb < n_rows; rb += UNROLL) {
-#pragma unroll
-    for (int i = 0; i < UNROLL; ++i) {
-      const int r = rb + i;
-      // rb is a multiple of UNROLL, so an even UNROLL fixes the parity
-      const int par = UNROLL % 2 == 0 ? (i & 1) : (r & 1);
-      if (r < n_rows && t0 < S_t && t0 <= r && t0 + LPT - 1 >= r - S_q + 1)
-        own_row<PACK>(r, par, t0, S_q, S_t, U, Y, P, V, qs, o, s,
-                      pb + (size_t)r * S_t);
-      __syncthreads();
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // reg / regN / preg / pregN / bspec / bspecN: state in registers
@@ -448,6 +315,7 @@ struct Variant {
   Org org;
   bool pack, bspec;
   int n;  // rows per unrolled step (owned) or per barrier (reg)
+  bool vib = false;  // the cell with __vibmax_s32 (owned, two rows a step)
 };
 
 const Variant VARIANTS[] = {
@@ -467,6 +335,7 @@ const Variant VARIANTS[] = {
     {"bspec", ORG_REG, false, true, 1},
     {"bspec2", ORG_REG, false, true, 2},
     {"bspec4", ORG_REG, false, true, 4},
+    {"vibmax", ORG_OWNED, false, false, 2, true},
 };
 constexpr int N_VARIANTS = sizeof(VARIANTS) / sizeof(VARIANTS[0]);
 
@@ -552,6 +421,9 @@ int sedef_fill_variant(const char* variant, const void* qseq, const void* tgt,
   if (S_t % LPT || S_t > 1024 * LPT) return (int)cudaErrorInvalidValue;
   if (v->pack && a.s.max_sc > 127) return (int)cudaErrorInvalidValue;
   const int threads = (S_t / LPT + 31) / 32 * 32;
+  if (v->vib)
+    return launch(fill_owned<false, 2, true>, a, threads,
+                  24LL * a.S_t + a.S_q);
   if (v->org == ORG_OWNED)
     return v->pack ? launch_owned<true>(a, v->n, threads)
                    : launch_owned<false>(a, v->n, threads);

@@ -5,11 +5,12 @@ Anti-diagonal wavefront affine-gap global aligner on PyTorch + CUDA.
 Replacement for the reference's ksw2 ``extz2_sse`` kernel
 (``extern/ksw2_extz2_sse.cc``, called from ``src/align.cc:39-68``).  The
 reference already uses the rotated (r = i + j) difference-recurrence
-formulation with 16-lane int8 SSE; here the same recurrence runs in a
-hand-written CUDA kernel (``csrc/wavefront_fill.cu``) that writes the
-direction matrix to device memory, and a second kernel
-(``csrc/traceback_pack.cu``) walks it back into 2-bit packed ops, so only
-one code per anti-diagonal reaches the host.  Each kernel has a plain
+formulation with 16-lane int8 SSE; here the same recurrence runs in
+hand-written CUDA kernels (``csrc/wavefront_fill.cu``,
+``csrc/tile_fill_cluster.cu``; ``fill_plan`` chooses the organisation of a
+launch) that write the direction matrix to device memory, and a second
+kernel (``csrc/traceback_pack.cu``) walks it back into 2-bit packed ops, so
+only one code per anti-diagonal reaches the host.  Each kernel has a plain
 PyTorch version beside it (``wavefront_fill_torch``,
 ``backtrack_pack_torch``): it is the path for tensors on the CPU, and what
 the kernels are checked against on the card.  ``wavefront_fill_variant``
@@ -45,6 +46,7 @@ the target (seq B).  Gap placement follows ksw2's left-alignment tie-break.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import threading
 from typing import NamedTuple
@@ -324,16 +326,19 @@ def wavefront_fill_torch(qseq: torch.Tensor, tgt: torch.Tensor,
 
 def tile_checkpoint_torch(qseq: torch.Tensor, tgt: torch.Tensor, tile: int,
                           K: int = 1, match: int = 5, mis: int = -4,
-                          gapo: int = 40, gape: int = 1) -> torch.Tensor:
+                          gapo: int = 40, gape: int = 1,
+                          p_out: torch.Tensor | None = None) -> torch.Tensor:
     """The whole fill, keeping only the state entering each tile:
-    (n_streams, n_tiles, 4, S_t) int32 planes u, y, x, v."""
+    (n_streams, n_tiles, 4, S_t) int32 planes u, y, x, v.  With ``p_out``
+    (n_streams, K * S_q + S_t - 1, S_t) uint8 the same pass writes the
+    direction rows too (``wavefront_fill_streamed_torch``'s)."""
     S_q, S_t = qseq.shape[1], tgt.shape[1]
     n = qseq.shape[0] // K
     ckpt = torch.empty((n, _n_tiles(S_q, S_t, K, tile), 4, S_t),
                        dtype=torch.int32, device=tgt.device)
     _fill_rows_torch(qseq, tgt, K, 0, _stream_rows(S_q, S_t, K),
                      _zero_state(n, S_t, tgt.device), match, mis, gapo, gape,
-                     ckpt=ckpt, tile=tile)
+                     p_out=p_out, ckpt=ckpt, tile=tile)
     return ckpt
 
 
@@ -473,14 +478,15 @@ def _kernels():
                 vp, ci = ctypes.c_void_p, ctypes.c_int
                 sigs = {
                     "sedef_fill_smem_bytes": [ci] * 3,
-                    "sedef_fill": [vp] * 4 + [ci] * 8 + [vp],
+                    "sedef_fill_warp": [vp] * 3 + [ci] * 8 + [vp],
+                    "sedef_fill_owned": [vp] * 3 + [ci] * 8 + [vp],
+                    "sedef_fill_cluster": [vp] * 3 + [ci] * 12 + [vp],
                     "sedef_fill_streamed": [vp] * 4 + [ci] * 9 + [vp],
                     "sedef_tile_ckpt": [vp] * 3 + [ci] * 14 + [vp],
                     "sedef_tile_refill": [vp] * 4 + [ci] * 15 + [vp],
                     "sedef_tile_cluster_occupancy": (
                         [ci] * 7 + [ctypes.POINTER(ci)]),
-                    "sedef_traceback_pack": [vp] * 4 + [ci] * 5 + [vp],
-                    "sedef_tile_traceback": [vp] * 5 + [ci] * 8 + [vp],
+                    "sedef_walk": [vp] * 5 + [ci] * 11 + [vp],
                     "sedef_fill_variant": ([ctypes.c_char_p] + [vp] * 3
                                            + [ci] * 8 + [vp]),
                 }
@@ -551,8 +557,12 @@ def _threads(n_streams: int, width: int) -> int:
 def _launch(wrapper, dev: torch.device, fn, *args) -> None:
     """Launch on ``dev``'s current stream (no synchronisation), raise on a
     CUDA error, and count the launch on ``wrapper``."""
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if torch.cuda.current_device() == dev.index:
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, stream)
     if rc:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
                            f"error {rc}")
@@ -572,14 +582,17 @@ def _ptr(t) -> int | None:
 
 
 def wavefront_fill(qseq: torch.Tensor, tgt: torch.Tensor, match: int = 5,
-                   mis: int = -4, gapo: int = 40, gape: int = 1
-                   ) -> torch.Tensor:
+                   mis: int = -4, gapo: int = 40, gape: int = 1, *,
+                   plan: "FillPlan | None" = None) -> torch.Tensor:
     """Direction matrix (B, S_q + S_t - 1, S_t) uint8 of a batch.
 
-    On a CUDA tensor this launches ``csrc/wavefront_fill.cu`` on the
-    current stream (no synchronisation) or raises; on a CPU tensor it is
-    ``wavefront_fill_torch``.  The kernel writes only each row's class
-    triangle lanes; the rest of ``p`` is left unwritten."""
+    On a CUDA tensor this launches one hand-written kernel on the current
+    stream (no synchronisation) or raises: under ``plan`` or the card's
+    ``fill_plan_on``, the warp fill or the owned-lane fill of
+    ``csrc/wavefront_fill.cu``, or the cluster fill of
+    ``csrc/tile_fill_cluster.cu`` run from the zero state.  On a CPU tensor
+    it is ``wavefront_fill_torch``.  The kernels write only each row's band
+    lanes (``stream_band``); the rest of ``p`` is undefined."""
     dev = _check_codes(qseq, tgt, 1)
     if dev.type == "cpu":
         return wavefront_fill_torch(qseq, tgt, match, mis, gapo, gape)
@@ -588,22 +601,30 @@ def wavefront_fill(qseq: torch.Tensor, tgt: torch.Tensor, match: int = 5,
     p = torch.empty((B, S_q + S_t - 1, S_t), dtype=torch.uint8, device=dev)
     if B == 0:
         return p
+    plan = plan or fill_plan_on(dev, S_q, S_t, B)
     lib = _kernels()
-    scratch = _scratch(lib, 1, S_q, S_t, B, dev)
-    _launch(wavefront_fill, dev, lib.sedef_fill, qseq.data_ptr(),
-            tgt.data_ptr(), p.data_ptr(), _ptr(scratch), B, S_q, S_t, match,
-            mis, gapo, gape, _threads(B, min(S_q, S_t)))
+    args = (qseq.data_ptr(), tgt.data_ptr(), p.data_ptr(), B, S_q, S_t,
+            match, mis, gapo, gape)
+    if plan.org == "warp":
+        _launch(wavefront_fill, dev, lib.sedef_fill_warp, *args,
+                plan.per_block)
+    elif plan.org == "owned":
+        _launch(wavefront_fill, dev, lib.sedef_fill_owned, *args, plan.N)
+    else:
+        _launch(wavefront_fill, dev, lib.sedef_fill_cluster, *args,
+                *plan.tile)
     return p
 
 
 # the direct fill's variants (csrc/wavefront_fill_variants.cu), by
 # organisation: shared-memory state with striding threads (base); owned
 # lanes with the state in shared memory (hoist, unrollN; packed: pack,
-# packuN); owned lanes with the state in registers (reg, regN; packed:
+# packuN; unroll2 with the cell's max-and-test pairs as one __vibmax_s32
+# each: vibmax); owned lanes with the state in registers (reg, regN; packed:
 # preg, pregN; without boundary selects past the ramp: bspec, bspecN)
 FILL_VARIANTS = ("base", "hoist", "unroll2", "unroll4", "pack", "packu2",
                  "packu4", "reg", "reg2", "reg4", "preg", "preg2", "preg4",
-                 "bspec", "bspec2", "bspec4")
+                 "bspec", "bspec2", "bspec4", "vibmax")
 # lanes a thread owns in every variant but base, and its widest class
 VARIANT_LANES = 4
 VARIANT_MAX_S_T = 1024 * VARIANT_LANES
@@ -785,19 +806,25 @@ def tile_plan(S_t: int, n_streams: int, sms: int,
 _OCCUPANCY: dict = {}
 
 
-def tile_cluster_occupancy(plan: TilePlan, n_streams: int, refill: bool,
+def tile_cluster_occupancy(plan: TilePlan, n_streams: int, mode: int,
                            dev: torch.device) -> int:
     """Clusters of ``plan``'s shape the card holds at once
     (``cudaOccupancyMaxActiveClusters``); 0 when the card refuses the
-    shape."""
-    key = (dev.index, plan, bool(refill))
+    shape.  ``mode`` picks the kernel: 0 (False) the checkpoint pass, 1
+    (True) the refill, 2 the direct fill."""
+    key = (dev.index, plan, int(mode))
     if key not in _OCCUPANCY:
         out = ctypes.c_int(0)
         with torch.cuda.device(dev):
             rc = _kernels().sedef_tile_cluster_occupancy(
-                int(refill), n_streams, *plan, ctypes.byref(out))
+                int(mode), n_streams, *plan, ctypes.byref(out))
         _OCCUPANCY[key] = 0 if rc else out.value
     return _OCCUPANCY[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def tile_plan_on(dev: torch.device, S_t: int, n_streams: int, refill: bool
@@ -807,12 +834,158 @@ def tile_plan_on(dev: torch.device, S_t: int, n_streams: int, refill: bool
     lives inside one GPC, so fewer fit than SMs / C; a cluster that
     queues doubles the launch's time), never below what S_t needs.  A
     launch the card still refuses raises."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = _sm_count(dev)
     plan = tile_plan(S_t, n_streams, sms)
     while (plan.C > tile_min_cluster(S_t)
            and tile_cluster_occupancy(plan, n_streams, refill, dev)
            < n_streams):
         plan = tile_plan(S_t, n_streams, sms, C=plan.C // 2)
+    return plan
+
+
+# The direct fill's organisations.  "warp": one warp per problem, four
+# lanes a thread, state in registers, several problems a block
+# (csrc/wavefront_fill.cu; classes of at most FILL_WARP_LANES lanes).
+# "owned": one block per problem, four owned lanes a thread, state in
+# shared memory, FILL_OWNED_UNROLL rows an unrolled step
+# (csrc/fill_owned.cuh, the variant harness's unroll4; S_t a multiple of 4
+# up to FILL_OWNED_MAX_W).
+# "cluster": the cluster fill of csrc/tile_fill_cluster.cu run from the zero
+# state over the whole matrix, a problem's lanes over a cluster of C blocks
+# (C = 1: one block, for the classes "owned" does not take).
+FILL_ORGS = ("warp", "owned", "cluster")
+FILL_WARP_LANES = 128
+# problems a block: against eight, four are 20% faster on 32 problems and
+# 2% slower on 4,096 (tools/kbench.py's direct-fill table on an H100)
+FILL_WARP_PER_BLOCK = 4
+FILL_SMEM_BYTES = 227 * 1024  # a block's shared memory at most
+FILL_OWNED_LANES = 4
+FILL_OWNED_MAX_W = 1024 * FILL_OWNED_LANES
+# rows an unrolled step, of (2, 4): four is 3-8% faster than two at
+# (1024,1024) from 64 to 1,056 problems (tools/kbench.py on an H100)
+FILL_OWNED_UNROLL = 4
+# up to this width one block of owned lanes beats a cluster at every batch
+# size: its row costs 0.23 us per 1,024 lanes, a cluster's block 0.35-0.48 us
+# at any width (tools/kbench.py's direct-fill table on an H100)
+FILL_OWNED_WIDEST = 2048
+
+
+class FillPlan(NamedTuple):
+    """How one launch of the direct fill is laid over the card: the
+    organisation ``org`` (one of FILL_ORGS), then ``TilePlan``'s fields
+    (for "warp" and "owned" one block of 4-lane threads and no ring; N is
+    the rows of an unrolled step) and the problems a block ``per_block`` (1
+    unless "warp")."""
+    org: str
+    C: int
+    W: int
+    lanes: int
+    N: int
+    ring: int
+    per_block: int
+
+    @property
+    def tile(self) -> TilePlan:
+        """The cluster fill's plan of a "cluster" launch."""
+        return TilePlan(self.C, self.W, self.lanes, self.N, self.ring)
+
+
+def _owned_takes(S_q: int, S_t: int) -> bool:
+    """Whether the owned-lane kernel takes the class: whole 4-lane groups,
+    1,024 threads, and six int32 planes and the query in shared memory."""
+    return (S_t % FILL_OWNED_LANES == 0 and S_t <= FILL_OWNED_MAX_W
+            and 24 * S_t + S_q <= FILL_SMEM_BYTES)
+
+
+def fill_plan(S_q: int, S_t: int, B: int, sms: int, *,
+              org: str | None = None, C: int | None = None,
+              lanes: int | None = None, N: int | None = None,
+              per_block: int | None = None) -> FillPlan:
+    """The plan of a direct fill of ``B`` problems of class (S_q, S_t) on a
+    card of ``sms`` SMs.
+
+    Classes of at most FILL_WARP_LANES lanes take a warp per problem,
+    FILL_WARP_PER_BLOCK problems a block (fewer when a block's shared
+    memory does not hold that many queries).  Wider classes take one block
+    of owned lanes per problem up to FILL_OWNED_WIDEST lanes, and beyond
+    that when the batch leaves a problem one block anyway.  What remains,
+    few problems of a wide class, takes the cluster fill under
+    ``tile_plan``: C the largest power of two with B * C blocks on no more
+    than ``sms`` SMs and at least TILE_MIN_W lanes a block, and no more
+    lanes a thread than a problem has query codes.  ``org``, ``C``,
+    ``lanes``, ``N`` and ``per_block`` force a choice; what the kernels do
+    not take raises ``ValueError``."""
+    if min(S_q, S_t, B, sms) < 1:
+        raise ValueError("S_q, S_t, B and sms must be positive")
+    if org is not None and org not in FILL_ORGS:
+        raise ValueError(f"unknown organisation {org!r}; one of "
+                         f"{', '.join(FILL_ORGS)}")
+    free = C is None and lanes is None and N is None
+    if org is None and free and (S_t <= FILL_WARP_LANES
+                                 and S_q <= FILL_SMEM_BYTES):
+        org = "warp"
+    if org == "warp":
+        if S_t > FILL_WARP_LANES or S_q > FILL_SMEM_BYTES:
+            raise ValueError(f"a warp holds {FILL_WARP_LANES} lanes and a "
+                             f"block {FILL_SMEM_BYTES} query codes, got "
+                             f"class ({S_q}, {S_t})")
+        if C not in (None, 1) or lanes not in (None, 4) or N is not None:
+            raise ValueError("the warp fill is one block of 4-lane threads "
+                             "without a barrier")
+        if per_block is None:
+            per_block = max(1, min(FILL_WARP_PER_BLOCK,
+                                   FILL_SMEM_BYTES // S_q))
+        elif not (1 <= per_block <= 32
+                  and per_block * S_q <= FILL_SMEM_BYTES):
+            raise ValueError(f"{per_block} problems a block: 1 to 32, and "
+                             f"their query codes in shared memory")
+        return FillPlan("warp", 1, FILL_WARP_LANES, 4, 0, 0, per_block)
+    if per_block not in (None, 1):
+        raise ValueError("only the warp fill shares a block among problems")
+    if org == "owned":
+        if not _owned_takes(S_q, S_t):
+            raise ValueError(f"owned lanes take S_t a multiple of "
+                             f"{FILL_OWNED_LANES} up to {FILL_OWNED_MAX_W} "
+                             f"and 24 * S_t + S_q bytes of shared memory, "
+                             f"got class ({S_q}, {S_t})")
+        if (C not in (None, 1) or lanes not in (None, FILL_OWNED_LANES)
+                or N not in (None, 2, 4)):
+            raise ValueError("owned lanes are one block a problem, four "
+                             "lanes a thread, two or four rows a step")
+        return FillPlan("owned", 1, S_t, FILL_OWNED_LANES,
+                        N or FILL_OWNED_UNROLL, 0, 1)
+    tp = tile_plan(S_t, B, sms, N=N or TILE_ROWS_PER_BARRIER, C=C,
+                   lanes=lanes)
+    if (org is None and free and _owned_takes(S_q, S_t)
+            and (tp.C == 1 or S_t <= FILL_OWNED_WIDEST)):
+        return fill_plan(S_q, S_t, B, sms, org="owned")
+    if tp.lanes > S_q:
+        # a thread's lanes reach their top rows one after the other, so it
+        # owns no more lanes than the query has codes; more blocks make up
+        # for the narrower threads
+        cap = max(n for n in TILE_LANES if n <= S_q)
+        while lanes is not None or tp.W > TILE_THREADS * cap:
+            if (lanes is not None or C is not None
+                    or tp.C >= TILE_MAX_CLUSTER):
+                raise ValueError(f"S_q = {S_q} allows {cap} lanes a thread, "
+                                 f"which cannot cover {tp.W} lanes a block")
+            tp = tile_plan(S_t, B, sms, N=tp.N, C=2 * tp.C)
+        tp = tp._replace(lanes=min(tp.lanes, cap))
+    return FillPlan("cluster", *tp, 1)
+
+
+@functools.lru_cache(maxsize=4096)
+def fill_plan_on(dev: torch.device, S_q: int, S_t: int, B: int) -> FillPlan:
+    """``fill_plan`` for the card ``dev``: its SM count, and C halved while
+    the card cannot hold the launch's clusters all at once (as
+    ``tile_plan_on``).  Remembered per shape: a launch group's plan costs
+    the wrapper nothing the second time."""
+    sms = _sm_count(dev)
+    plan = fill_plan(S_q, S_t, B, sms)
+    least = fill_plan(S_q, S_t, B, 1).C  # what the class itself needs
+    while (plan.C > least
+           and tile_cluster_occupancy(plan.tile, B, 2, dev) < B):
+        plan = fill_plan(S_q, S_t, B, sms, C=plan.C // 2)
     return plan
 
 
@@ -914,6 +1087,68 @@ def tile_refill_streamed(qseq: torch.Tensor, tgt: torch.Tensor,
                         (match, mis, gapo, gape), plan)
 
 
+# The walker of csrc/traceback_pack.cu: a warp per walker on patches of R
+# direction rows that the warp copies into shared memory at once, the patch
+# below fetched while the one at hand is walked.
+WALK_ROWS = (32, 64)     # patch heights the kernel is built for
+WALK_ALIGN = 16          # a patch row starts on a 16-lane boundary
+WALK_WARPS = 4           # walkers a block once they outnumber the SMs
+WALK_SMS = 132           # an H100's SMs, where the caller names no card
+
+
+class WalkPlan(NamedTuple):
+    """How the tracebacks walk: patches of ``R`` rows (0: one thread per
+    walker, one global read per consumed row; the yardstick) of ``pw``
+    bytes a row, the patch below fetched ahead when ``prefetch``,
+    ``warps`` walkers a block."""
+    R: int
+    pw: int
+    prefetch: bool
+    warps: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """A block's shared memory: two patches a walker."""
+        return self.warps * 2 * self.R * self.pw
+
+
+def walk_plan(B: int, sms: int = WALK_SMS, *, R: int = WALK_ROWS[-1],
+              prefetch: bool = True, pw: int | None = None,
+              warps: int | None = None) -> WalkPlan:
+    """The plan of a traceback launch of ``B`` walkers.  A walker lowers
+    its lane by at most one per consumed row, so a patch R + WALK_ALIGN
+    bytes wide holds R rows of any walk from its top row; with
+    2 R + WALK_ALIGN the patch fetched ahead holds the walker wherever the
+    patch before lets it arrive, which is what ``prefetch`` takes unless
+    ``pw`` says otherwise (a narrower guess that the walker leaves is
+    fetched again).  One walker a block while they are fewer than the
+    SMs' twofold, WALK_WARPS then."""
+    if B < 1 or sms < 1:
+        raise ValueError("B and sms must be positive")
+    if R == 0:
+        return WalkPlan(0, 0, False, 0)
+    if R not in WALK_ROWS:
+        raise ValueError(f"patches are {WALK_ROWS} rows high, got {R}")
+    if pw is None:
+        pw = (2 * R if prefetch else R) + WALK_ALIGN
+    if pw % WALK_ALIGN or not R + WALK_ALIGN <= pw <= 2 * R + WALK_ALIGN:
+        raise ValueError(f"a patch row is a multiple of {WALK_ALIGN} bytes "
+                         f"in [{R + WALK_ALIGN}, {2 * R + WALK_ALIGN}], got "
+                         f"{pw}")
+    if warps is None:
+        warps = 1 if B <= 2 * sms else WALK_WARPS
+    plan = WalkPlan(R, pw, bool(prefetch), warps)
+    if not 1 <= warps <= 32 or plan.smem_bytes > FILL_SMEM_BYTES:
+        raise ValueError(f"{warps} walkers a block: 1 to 32, and their "
+                         f"patches in shared memory")
+    return plan
+
+
+@functools.lru_cache(maxsize=4096)
+def _walk_plan_on(dev: torch.device, B: int) -> WalkPlan:
+    return walk_plan(B, _sm_count(dev))
+
+
 def _check_walk(p, ql, tl, B: int) -> torch.device:
     _check(p, torch.uint8, 3, "p")
     _check(ql, torch.int32, 1, "ql")
@@ -923,16 +1158,31 @@ def _check_walk(p, ql, tl, B: int) -> torch.device:
     return _same_device(p, ql, tl)
 
 
+def _walk(wrapper, dev, p, ql, tl, ws, out, K, S_q, r0, plan) -> None:
+    """Launch the walker over stream rows [r0, r0 + p.shape[1]) of ``p``
+    for ``wrapper``, under ``plan`` or the card's."""
+    _, tile, S_t = p.shape
+    B = ql.shape[0]
+    if plan is None:
+        plan = _walk_plan_on(dev, B)
+    _launch(wrapper, dev, _kernels().sedef_walk, p.data_ptr(),
+            ql.data_ptr(), tl.data_ptr(), _ptr(ws), out.data_ptr(), B, K,
+            S_q, S_t, out.shape[1], r0, tile, plan.R, plan.pw,
+            int(plan.prefetch), plan.warps)
+
+
 def backtrack_pack(p: torch.Tensor, ql: torch.Tensor, tl: torch.Tensor,
-                   K: int = 1) -> torch.Tensor:
+                   K: int = 1, *, plan: WalkPlan | None = None
+                   ) -> torch.Tensor:
     """Packed traceback ops (B, ceil(n_diag / 4)) uint8 of ``p``, the
     output of ``wavefront_fill`` (K = 1) or ``wavefront_fill_streamed``.
 
     ``ql``/``tl``: (B,) int32 true lengths, 1 <= ql <= S_q and
     1 <= tl <= S_t (the caller's contract; the kernel never reads outside
-    a problem's slab).  On a CUDA tensor this launches
-    ``csrc/traceback_pack.cu`` on the current stream or raises; on a CPU
-    tensor it is ``backtrack_pack_torch``."""
+    a problem's slab).  On a CUDA tensor this launches the walker of
+    ``csrc/traceback_pack.cu`` on the current stream, under ``plan`` or
+    the card's ``walk_plan``, or raises; on a CPU tensor it is
+    ``backtrack_pack_torch``."""
     n, n_rows, S_t = p.shape
     B = n * K
     dev = _check_walk(p, ql, tl, B)
@@ -944,13 +1194,13 @@ def backtrack_pack(p: torch.Tensor, ql: torch.Tensor, tl: torch.Tensor,
     n_bytes = (S_q + S_t - 1 + 3) // 4
     out = torch.empty((B, n_bytes), dtype=torch.uint8, device=dev)
     if B:
-        _launch(backtrack_pack, dev, _kernels().sedef_traceback_pack,
-                p.data_ptr(), ql.data_ptr(), tl.data_ptr(), out.data_ptr(),
-                B, K, S_q, S_t, n_bytes)
+        # the whole matrix is one tile from stream row 0, walked from each
+        # problem's corner (no saved walkers)
+        _walk(backtrack_pack, dev, p, ql, tl, None, out, K, S_q, 0, plan)
     return out
 
 
-def _tile_backtrack(wrapper, p_tile, ql, tl, ws, out, r0, S_q, K, streamed):
+def _tile_backtrack(wrapper, p_tile, ql, tl, ws, out, r0, S_q, K, plan):
     n, tile, S_t = p_tile.shape
     B = n * K
     dev = _check_walk(p_tile, ql, tl, B)
@@ -966,33 +1216,32 @@ def _tile_backtrack(wrapper, p_tile, ql, tl, ws, out, r0, S_q, K, streamed):
     if dev.type == "cpu":
         return tile_backtrack_torch(p_tile, ql, tl, ws, out, r0, S_q, K)
     if B:
-        _launch(wrapper, dev, _kernels().sedef_tile_traceback,
-                p_tile.data_ptr(), ql.data_ptr(), tl.data_ptr(),
-                ws.data_ptr(), out.data_ptr(), B, K, S_q, S_t, n_bytes, r0,
-                tile, int(streamed))
+        _walk(wrapper, dev, p_tile, ql, tl, ws, out, K, S_q, r0, plan)
 
 
 def tile_backtrack(p_tile: torch.Tensor, ql: torch.Tensor, tl: torch.Tensor,
-                   ws: torch.Tensor, out: torch.Tensor, r0: int, S_q: int
-                   ) -> None:
+                   ws: torch.Tensor, out: torch.Tensor, r0: int, S_q: int,
+                   *, plan: WalkPlan | None = None) -> None:
     """One tile of the tiled traceback, in place: the walkers in ``ws``
     (B, 3) int32 (i, j, state) walk ``p_tile`` (``tile_refill``'s output
     for the tile starting at row r0) and write its rows' packed bytes into
-    ``out`` (B, ceil(n_diag / 4)) uint8.  Launches
-    ``csrc/traceback_pack.cu``'s tile walker on a CUDA tensor (or raises);
+    ``out`` (B, ceil(n_diag / 4)) uint8.  Launches the warp-per-walker
+    window kernel of ``csrc/traceback_pack.cu`` on a CUDA tensor, under
+    ``plan`` or the card's ``walk_plan`` (or raises);
     ``tile_backtrack_torch`` on a CPU tensor."""
     _tile_backtrack(tile_backtrack, p_tile, ql, tl, ws, out, r0, S_q, 1,
-                    False)
+                    plan)
 
 
 def tile_backtrack_streamed(p_tile: torch.Tensor, ql: torch.Tensor,
                             tl: torch.Tensor, ws: torch.Tensor,
-                            out: torch.Tensor, r0: int, S_q: int, K: int
-                            ) -> None:
+                            out: torch.Tensor, r0: int, S_q: int, K: int,
+                            *, plan: WalkPlan | None = None) -> None:
     """``tile_backtrack`` over streams of K problems (B = n_streams * K
-    walkers, problem k reading stream rows from k * S_q)."""
+    walkers, problem k reading stream rows from k * S_q); the same
+    kernel."""
     _tile_backtrack(tile_backtrack_streamed, p_tile, ql, tl, ws, out, r0,
-                    S_q, K, True)
+                    S_q, K, plan)
 
 
 # every kernel wrapper, in the order of the reference package's kernels
@@ -1098,6 +1347,8 @@ class WavefrontAligner:
         self.device_problems = 0
         self.device_cells = 0
         self.device_batches = 0
+        # problems of every launch group, by (route, S_q, S_t)
+        self.launch_groups: dict[tuple[str, int, int], list[int]] = {}
 
     def align_codes(self, query: np.ndarray, target: np.ndarray
                     ) -> list[tuple[str, int]]:
@@ -1282,6 +1533,10 @@ class WavefrontAligner:
             self.device_problems += len(part)
             self.device_cells += int((ql.astype(np.int64) * tl).sum())
             self.device_batches += 1
+            route = (("direct", "streamed") if tile is None
+                     else ("tiled", "streamed-tiled"))[K > 1]
+            self.launch_groups.setdefault((route, S_q, S_t),
+                                          []).append(len(part))
         return ops
 
     @staticmethod

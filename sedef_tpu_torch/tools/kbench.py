@@ -13,8 +13,11 @@ NumPy reference's) and, on ``cuda``, the time and rate of one launch at
 the harness shape (L = 1024, B = 64, random codes) and at a card-filling
 batch (B = 1056, eight blocks per SM of an H100).  Then it times the
 streamed fill against the direct fill over batch size and problems per
-stream, and the cluster tile fill over cluster size and rows per cluster
-barrier beside the direct fill at 4, 10 and 60 Kbp.  With
+stream, the cluster tile fill over cluster size and rows per cluster
+barrier beside the direct fill at 4, 10 and 60 Kbp, the direct fill over
+the organisations its plan can choose (``--tables`` picks among
+``streamed``, ``tiled``, ``fill``, ``walk``), and the tracebacks' walker
+(one thread per walker against a warp on a prefetched window).  With
 ``--device cpu`` it runs the correctness half on the plain versions and
 prints no times.
 
@@ -242,15 +245,202 @@ def bench_tiled(device, shapes=TILED_SHAPES, log=print, timer=None) -> dict:
     return table
 
 
+# (S_q, S_t, B) of the direct-fill table: stage 2b's class-128 launch
+# groups at three batch sizes, two classes far from square, the harness
+# shape and a card-filling batch, and few problems of wide classes
+FILL_SHAPES = ((128, 128, 32), (128, 128, 256), (128, 128, 4096),
+               (256, 1024, 64), (2048, 512, 64), (1024, 1024, 64),
+               (1024, 1024, 1056), (2048, 2048, 32), (4096, 4096, 4),
+               (8192, 8192, 2))
+FILL_CLUSTERS = (2, 4, 8, 16)
+
+
+def fill_plans(S_q: int, S_t: int, B: int, sms: int) -> dict:
+    """{label: FillPlan} of every organisation the direct fill can be
+    forced into at the shape: a warp per problem at both block sizes,
+    one block of owned lanes (four and two rows an unrolled step), and the
+    cluster fill as one block (1, 2 and 4 lanes a thread) and as clusters
+    of 2 to 16."""
+    out = {}
+
+    def add(label, **force):
+        try:
+            out[label] = wf.fill_plan(S_q, S_t, B, sms, **force)
+        except ValueError:
+            pass
+
+    for pb in (wf.FILL_WARP_PER_BLOCK, 2 * wf.FILL_WARP_PER_BLOCK):
+        add(f"warp x{pb}", org="warp", per_block=pb)
+    add("owned", org="owned")
+    add("owned N=2", org="owned", N=2)
+    for lanes in wf.TILE_LANES:
+        add(f"C=1 l{lanes}", org="cluster", C=1, lanes=lanes)
+    for C in FILL_CLUSTERS:
+        add(f"C={C}", org="cluster", C=C)
+    return out
+
+
+def _sms(dev: torch.device) -> int:
+    return (torch.cuda.get_device_properties(dev).multi_processor_count
+            if dev.type == "cuda" else wf.WALK_SMS)
+
+
+def bench_fill(device, shapes=FILL_SHAPES, log=print, timer=None) -> dict:
+    """The direct fill over its plan: ms per launch under every
+    organisation of ``fill_plans`` and under the card's own plan, beside
+    the variant ``base`` (one block per problem, threads striding the
+    band: the port's first direct fill).  Every forced plan's bytes are
+    held against ``base``'s on the band.  Returns {(S_q, S_t, B): {"plan":
+    FillPlan, "own": ms, "base": ms, label: ms}}; raises on a mismatch."""
+    timer = timer or time_launches
+    dev = torch.device(device)
+    sms = _sms(dev)
+    table = {}
+    for S_q, S_t, B in shapes:
+        q, t = random_codes(B, S_q, S_t, device)
+        own = (wf.fill_plan_on(dev, S_q, S_t, B) if dev.type == "cuda"
+               else wf.fill_plan(S_q, S_t, B, sms))
+        want = wf.wavefront_fill_variant("base", q, t)
+        row = {"plan": own,
+               "base": timer(
+                   lambda: wf.wavefront_fill_variant("base", q, t), 5, 1),
+               "own": timer(lambda: wf.wavefront_fill(q, t), 5, 1)}
+        for label, plan in fill_plans(S_q, S_t, B, sms).items():
+            bad = band_mismatches(wf.wavefront_fill(q, t, plan=plan), want,
+                                  S_q, S_t)
+            if bad:
+                raise AssertionError(f"direct fill ({S_q},{S_t}) B={B} "
+                                     f"under {plan}: {bad} band bytes "
+                                     f"differ from base")
+            row[label] = timer(lambda: wf.wavefront_fill(q, t, plan=plan),
+                               5, 1)
+        del want
+        table[S_q, S_t, B] = row
+        cells = ", ".join(f"{k} {v:.3f}" for k, v in row.items()
+                          if k not in ("plan", "own", "base"))
+        log(f"fill ({S_q},{S_t}) B={B}: base {row['base']:.3f} ms; own plan "
+            f"{own.org} C={own.C} W={own.W} lanes={own.lanes} "
+            f"per_block={own.per_block} {row['own']:.3f} ms "
+            f"{_gcups(B, S_q, S_t, row['own']):.2f} GCUPS; forced: {cells}")
+    return table
+
+
+# (S_q, S_t, B) of the walker table: a class of the direct route cut into
+# tiles, the 10 Kbp class of the tiled route, one 60 Kbp chunk
+WALK_SHAPES = ((1024, 1024, 64), (10240, 10240, 4), (61440, 61440, 1))
+
+
+def walk_plans(B: int, sms: int) -> dict:
+    """{label: WalkPlan}: one thread per walker, and a warp on a window of
+    32 and 64 rows with and without the patch below fetched ahead."""
+    out = {"thread": wf.walk_plan(B, sms, R=0)}
+    for R in wf.WALK_ROWS:
+        out[f"R={R}"] = wf.walk_plan(B, sms, R=R, prefetch=False)
+        out[f"R={R} prefetch"] = wf.walk_plan(B, sms, R=R, prefetch=True)
+    return out
+
+
+def related_codes(B: int, S_q: int, S_t: int, device, seed: int = 0):
+    """Full-length problems whose targets are their queries with 10% of
+    the codes redrawn (and a random tail where S_t > S_q), so that the
+    tracebacks run along the diagonal with gaps, as stage 2b's do."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, (B, S_q)).astype(np.int8)
+    t = rng.integers(0, 4, (B, S_t)).astype(np.int8)
+    n = min(S_q, S_t)
+    keep = rng.random((B, n)) >= 0.10
+    t[:, :n][keep] = q[:, :n][keep]
+    return torch.from_numpy(q).to(device), torch.from_numpy(t).to(device)
+
+
+def time_once(fn) -> float:
+    """Device milliseconds of one call of ``fn`` on the current stream."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def bench_walk(device, shapes=WALK_SHAPES, log=print, timer=None) -> dict:
+    """The tracebacks' walker over its plan: the whole tiled walk of each
+    shape (tiles of the tiled route's height, each refilled just before it
+    is walked, from the last to the first) under every plan of
+    ``walk_plans``; ms a tile (the mean of the walk launches, ``timer(fn)``
+    each, default ``time_once``) and microseconds a consumed row of the
+    average walker.  Every plan's packed ops and walker states are held
+    against the one-thread walker's.
+    Returns {(S_q, S_t, B): {"rows": consumed rows, "tiles": n_tiles,
+    label: ms a tile}}; raises on a mismatch."""
+    timer = timer or time_once
+    dev = torch.device(device)
+    table = {}
+    for S_q, S_t, B in shapes:
+        q, t = related_codes(B, S_q, S_t, device)
+        ql = torch.full((B,), S_q, dtype=torch.int32, device=device)
+        tl = torch.full((B,), S_t, dtype=torch.int32, device=device)
+        n_rows = S_q + S_t - 1
+        tile = 4096 if n_rows >= 4096 else 1024
+        ckpt = wf.tile_checkpoint(q, t, tile)
+        n_tiles = ckpt.shape[1]
+        plans = walk_plans(B, _sms(dev))
+        ws = {k: torch.stack([tl - 1, ql - 1, torch.zeros_like(ql)], 1)
+              for k in plans}
+        out = {k: torch.empty((B, (n_rows + 3) // 4), dtype=torch.uint8,
+                              device=device) for k in plans}
+        ms = dict.fromkeys(plans, 0.0)
+        for ti in range(n_tiles - 1, -1, -1):
+            for k, plan in plans.items():
+                # a fresh refill before every walk: the walker finds the
+                # tile as the tiled route leaves it, just written and (past
+                # the L2's size) not cached
+                p_tile = wf.tile_refill(q, t, ckpt, ti, tile)
+                ms[k] += timer(lambda: wf.tile_backtrack(
+                    p_tile, ql, tl, ws[k], out[k], ti * tile, S_q,
+                    plan=plan))
+                del p_tile
+        for k in plans:
+            if not (torch.equal(out[k], out["thread"])
+                    and torch.equal(ws[k], ws["thread"])):
+                raise AssertionError(f"walker ({S_q},{S_t}) B={B} under "
+                                     f"{plans[k]} differs from the "
+                                     f"one-thread walker")
+        o = out["thread"].int()
+        rows = sum(int((((o >> sh) & 3) != 3).sum()) for sh in (0, 2, 4, 6))
+        row = {"rows": rows, "tiles": n_tiles}
+        row.update({k: v / n_tiles for k, v in ms.items()})
+        table[S_q, S_t, B] = row
+        per_walker = max(rows / B, 1.0)
+        log(f"walk ({S_q},{S_t}) B={B} tile={tile} x{n_tiles}, "
+            f"{rows} consumed rows: " + ", ".join(
+                f"{k} {row[k]:.3f} ms a tile "
+                f"{row[k] * n_tiles * 1e3 / per_walker:.3f} us a row"
+                for k in plans))
+    return table
+
+
+TABLES = {"streamed": bench_streamed, "tiled": bench_tiled,
+          "fill": bench_fill, "walk": bench_walk}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[2])
     ap.add_argument("variants", nargs="*", default=list(wf.FILL_VARIANTS),
                     help="fill variants (default: all)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--tables", default=",".join(TABLES),
+                    help="comma-separated tables to time after the "
+                         "variants (default: all; empty: none)")
     args = ap.parse_args(argv)
     for v in args.variants:
         if v not in wf.FILL_VARIANTS:
             ap.error(f"unknown variant {v!r}")
+    tables = [name for name in args.tables.split(",") if name]
+    for name in tables:
+        if name not in TABLES:
+            ap.error(f"unknown table {name!r}")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("kbench: --device cuda, but no CUDA device is "
                          "available (--device cpu runs the correctness "
@@ -270,8 +460,8 @@ def main(argv=None) -> int:
               f"{_gcups(HARNESS_B, L, L, small[v]):8.2f} GCUPS  "
               f"B={FULL_B}: {full[v]:8.3f} ms "
               f"{_gcups(FULL_B, L, L, full[v]):8.2f} GCUPS")
-    bench_streamed(args.device)
-    bench_tiled(args.device)
+    for name in tables:
+        TABLES[name](args.device)
     return 0 if all(ok.values()) else 1
 
 

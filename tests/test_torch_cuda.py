@@ -39,7 +39,8 @@ def _batch(rng, S_q, S_t, B):
     return qs, ts, ql, tl, pairs
 
 
-# the last class keeps its DP state in the global scratch slab
+# the card's own plan: a warp per problem at 128 lanes, one block of owned
+# lanes at the wider classes
 @pytest.mark.parametrize("S_q,S_t,B", [(128, 128, 40), (256, 1024, 9),
                                        (2048, 512, 5), (10240, 2048, 2)])
 def test_kernels_match_plain(dev, S_q, S_t, B):
@@ -119,7 +120,7 @@ def _assert_band_equal(pa, pb, r0, S_q, S_t, K):
         assert torch.equal(pa[s][m], pb[s][m]), s
 
 
-# the last classes keep their DP state in the global scratch slab
+# the last class keeps its DP state in the global scratch slab
 @pytest.mark.parametrize("S_q,S_t,K,n", [(1024, 1024, 2, 5), (128, 512, 3, 4),
                                          (2048, 1024, 16, 2),
                                          (2048, 10240, 2, 2)])
@@ -269,6 +270,185 @@ def test_refused_cluster_launch_raises(dev):
     wide = torch.zeros((1, 16 * 4096 + 4), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError):
         wf.tile_checkpoint(q, wide, 512)
+
+
+# every organisation of the direct fill, forced: a warp per problem (S_t
+# no multiple of 4; S_q shorter than a thread's lanes; one and eight
+# problems a block), one block of owned lanes (S_q of one and three codes;
+# the widest class), the cluster fill as one block (1, 2, 4 lanes a thread)
+# and as clusters of 2 to 16 (odd and even row counts; S_t no multiple of
+# 4 * C, then of 4)
+@pytest.mark.parametrize("S_q,S_t,B,force", [
+    (128, 128, 40, dict(org="warp", per_block=4)),
+    (100, 90, 37, dict(org="warp", per_block=8)),
+    (3, 128, 5, dict(org="warp", per_block=1)),
+    (128, 128, 9, dict(org="owned")),
+    (256, 1024, 9, dict(org="owned")),
+    (1025, 1024, 3, dict(org="owned")),
+    (3, 300, 3, dict(org="owned")),
+    (1, 132, 2, dict(org="owned")),
+    (512, 4096, 2, dict(org="owned")),
+    (1024, 1024, 3, dict(org="owned", N=2)),
+    (128, 128, 9, dict(org="cluster", C=1, lanes=4)),
+    (256, 1024, 9, dict(org="cluster", C=1, lanes=2)),
+    (1024, 1024, 3, dict(org="cluster", C=1, lanes=1)),
+    (2, 301, 3, dict(org="cluster", C=1, lanes=2)),
+    (1, 301, 2, dict(org="cluster")),
+    (1024, 1024, 3, dict(org="cluster", C=2)),
+    (2048, 512, 5, dict(org="cluster", C=2, lanes=4)),
+    (640, 1036, 3, dict(org="cluster", C=4)),
+    (512, 2050, 2, dict(org="cluster", C=8, lanes=1)),
+    (4096, 4096, 2, dict(org="cluster", C=16)),
+    (1024, 1023, 2, dict(org="cluster", C=2, N=2)),
+])
+def test_direct_fill_under_every_organisation(dev, S_q, S_t, B, force):
+    """``plan=`` forces the organisation; each writes the plain fill's
+    bytes on every band lane in one launch, and the traceback of its
+    matrix equals the plain one's."""
+    rng = np.random.default_rng(S_q * 5 + S_t + B)
+    qs, ts, ql, tl, _ = _batch(rng, S_q, S_t, B)
+    q, t, qlt, tlt = _on_card(dev, qs, ts, ql, tl)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = wf.fill_plan(S_q, S_t, B, sms, **force)
+    assert plan.org == force["org"]
+    n0 = wf.wavefront_fill.launches
+    p = wf.wavefront_fill(q, t, plan=plan)
+    torch.cuda.synchronize()
+    assert wf.wavefront_fill.launches == n0 + 1
+    _assert_band_equal(p, wf.wavefront_fill_torch(q, t), 0, S_q, S_t, 1)
+    assert torch.equal(wf.backtrack_pack(p, qlt, tlt),
+                       wf.backtrack_pack_torch(p, qlt, tlt))
+
+
+def test_fill_plan_on_and_refused_fill_raise(dev):
+    """The card's own plan names a kernel the card takes; a plan it
+    refuses raises and counts no launch."""
+    for S_q, S_t, B in [(128, 128, 300), (1024, 1024, 64), (4096, 4096, 8),
+                        (8192, 8192, 2), (1024, 1030, 600)]:
+        plan = wf.fill_plan_on(dev, S_q, S_t, B)
+        assert plan.org in wf.FILL_ORGS
+        if plan.C > 1:   # clusters all run at once; single blocks may queue
+            assert wf.tile_cluster_occupancy(plan.tile, B, 2, dev) >= B
+    q = torch.zeros((2, 512), dtype=torch.int8, device=dev)
+    t = torch.zeros((2, 2048), dtype=torch.int8, device=dev)
+    n0 = wf.wavefront_fill.launches
+    with pytest.raises(RuntimeError):   # a cluster of 32 blocks
+        wf.wavefront_fill(q, t, plan=wf.FillPlan("cluster", 32, 64, 1, 16,
+                                                 64, 1))
+    with pytest.raises(RuntimeError):   # 128 lanes of a warp for 2048
+        wf.wavefront_fill(q, t, plan=wf.FillPlan("warp", 1, 128, 4, 0, 0, 4))
+    odd = torch.zeros((2, 2050), dtype=torch.int8, device=dev)
+    with pytest.raises(RuntimeError):   # owned lanes come in fours
+        wf.wavefront_fill(q, odd, plan=wf.FillPlan("owned", 1, 2050, 4, 4, 0,
+                                                   1))
+    torch.cuda.synchronize()
+    assert wf.wavefront_fill.launches == n0
+    wide = torch.zeros((1, 16 * 4096 + 4), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        wf.wavefront_fill(q[:1], wide)
+
+
+WALK_FORCES = [dict(R=0), dict(R=32, prefetch=False), dict(R=32),
+               dict(R=32, pw=48), dict(R=64, prefetch=False), dict(R=64),
+               dict(R=64, pw=80, warps=3)]
+
+
+def _skewed(rng, S_q, S_t, B, kind):
+    """Problems whose walkers leave on the left edge (tl << ql), on the
+    top edge (ql << tl), or random ones."""
+    qs, ts, ql, tl, pairs = _batch(rng, S_q, S_t, B)
+    if kind == "left":
+        tl = np.minimum(tl, rng.integers(1, 12, B)).astype(np.int32)
+    elif kind == "top":
+        ql = np.minimum(ql, rng.integers(1, 12, B)).astype(np.int32)
+    for b in range(B):
+        qs[b, ql[b]:] = 4
+        ts[b, tl[b]:] = 4
+    return qs, ts, ql, tl
+
+
+# S_t = 1036 is no multiple of 16 (4-byte copies), 514 none of 4 (single
+# bytes); (600, 40) and (40, 600) are far from square
+@pytest.mark.parametrize("force", WALK_FORCES)
+@pytest.mark.parametrize("S_q,S_t,B,K,tile,kind", [
+    (512, 512, 7, 1, 128, "random"), (512, 512, 6, 1, 256, "left"),
+    (512, 512, 6, 1, 256, "top"), (640, 1036, 3, 1, 256, "random"),
+    (300, 514, 4, 2, 64, "random"), (600, 48, 5, 1, 64, "top"),
+    (40, 600, 300, 1, 128, "left"), (256, 256, 6, 3, 128, "random")])
+def test_walker_under_every_plan(dev, S_q, S_t, B, K, tile, kind, force):
+    """The three tracebacks under a forced walk plan: packed ops of the
+    whole matrix equal ``backtrack_pack_torch``'s, and every tile's
+    walker states and bytes equal ``tile_backtrack_torch``'s."""
+    rng = np.random.default_rng(S_q + 3 * S_t + B)
+    qs, ts, ql, tl = _skewed(rng, S_q, S_t, B, kind)
+    q, t, qlt, tlt = _on_card(dev, qs, ts, ql, tl)
+    plan = wf.walk_plan(B, **force)
+    p = wf.wavefront_fill_streamed(q, t, K) if K > 1 else wf.wavefront_fill(
+        q, t)
+    n0 = wf.backtrack_pack.launches
+    o_k = wf.backtrack_pack(p, qlt, tlt, K, plan=plan)
+    torch.cuda.synchronize()
+    assert wf.backtrack_pack.launches == n0 + 1
+    assert torch.equal(o_k, wf.backtrack_pack_torch(p, qlt, tlt, K))
+    walk = wf.tile_backtrack_streamed if K > 1 else wf.tile_backtrack
+    ws_k = torch.stack([tlt - 1, qlt - 1, torch.zeros_like(qlt)], 1)
+    ws_p = ws_k.clone()
+    out_k = torch.empty_like(o_k)
+    out_p = out_k.clone()
+    n_rows = p.shape[1]
+    n0 = walk.launches
+    n_tiles = -(-n_rows // tile)
+    for ti in range(n_tiles - 1, -1, -1):
+        pt = torch.zeros((p.shape[0], tile, S_t), dtype=torch.uint8,
+                         device=dev)
+        rows = min(tile, n_rows - ti * tile)
+        pt[:, :rows] = p[:, ti * tile:ti * tile + rows]
+        wargs = (ti * tile, S_q, K) if K > 1 else (ti * tile, S_q)
+        walk(pt, qlt, tlt, ws_k, out_k, *wargs, plan=plan)
+        wf.tile_backtrack_torch(pt, qlt, tlt, ws_p, out_p, ti * tile, S_q, K)
+        assert torch.equal(ws_k, ws_p) and torch.equal(out_k, out_p), ti
+    assert walk.launches == n0 + n_tiles
+    assert torch.equal(out_k, o_k)
+
+
+@pytest.mark.parametrize("force", WALK_FORCES)
+def test_walkers_outside_their_problem(dev, force):
+    """Walkers handed over beyond their problem's corner (i >= tl or
+    j >= ql) take the forced states: the kernel's general loop."""
+    S_q, S_t, B, tile = 256, 320, 9, 576
+    rng = np.random.default_rng(12)
+    qs, ts, ql, tl, _ = _batch(rng, S_q, S_t, B)
+    ql, tl = np.minimum(ql, 200), np.minimum(tl, 250)
+    q, t, qlt, tlt = _on_card(dev, qs, ts, ql, tl)
+    p = torch.zeros((B, tile, S_t), dtype=torch.uint8, device=dev)
+    p[:, :S_q + S_t - 1] = wf.wavefront_fill(q, t)
+    ws_k = torch.tensor([[tl[b] - 1 + 20 * (b % 3), ql[b] - 1 + 25 * (b % 2),
+                          0] for b in range(B)], dtype=torch.int32,
+                        device=dev)
+    ws_p = ws_k.clone()
+    out_k = torch.zeros((B, (S_q + S_t + 2) // 4), dtype=torch.uint8,
+                        device=dev)
+    out_p = out_k.clone()
+    wf.tile_backtrack(p, qlt, tlt, ws_k, out_k, 0, S_q,
+                      plan=wf.walk_plan(B, **force))
+    wf.tile_backtrack_torch(p, qlt, tlt, ws_p, out_p, 0, S_q)
+    assert torch.equal(ws_k, ws_p) and torch.equal(out_k, out_p)
+
+
+def test_refused_walk_raises(dev):
+    """A walk plan the kernel does not take raises; no launch is
+    counted."""
+    rng = np.random.default_rng(2)
+    qs, ts, ql, tl, _ = _batch(rng, 128, 128, 3)
+    q, t, qlt, tlt = _on_card(dev, qs, ts, ql, tl)
+    p = wf.wavefront_fill(q, t)
+    n0 = wf.backtrack_pack.launches
+    for bad in (wf.WalkPlan(48, 64, True, 1), wf.WalkPlan(64, 72, True, 1),
+                wf.WalkPlan(64, 144, True, 33)):
+        with pytest.raises(RuntimeError):
+            wf.backtrack_pack(p, qlt, tlt, plan=bad)
+    torch.cuda.synchronize()
+    assert wf.backtrack_pack.launches == n0
 
 
 def test_cuda_aligner_takes_every_route(dev):

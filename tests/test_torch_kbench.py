@@ -237,3 +237,99 @@ def test_bench_tiled_cpu_path():
     assert lines[1].split() == [f"C={C}" for C in kbench.TILED_CLUSTERS]
     assert [ln.split()[0] for ln in lines[2:8]] == ["checkpoint"] * 3 + [
         "refill"] * 3
+
+
+def test_fill_plans_grid():
+    """The direct-fill table's columns: every organisation the plan can be
+    forced into at a shape, and none it cannot."""
+    narrow = kbench.fill_plans(128, 128, 32, 132)
+    assert list(narrow) == ["warp x4", "warp x8", "owned", "owned N=2",
+                            "C=1 l1",
+                            "C=1 l2", "C=1 l4", "C=2", "C=4", "C=8", "C=16"]
+    assert (narrow["owned"].N, narrow["owned N=2"].N) == (4, 2)
+    assert narrow["warp x8"].per_block == 8 and narrow["C=4"].W == 32
+    wide = kbench.fill_plans(8192, 8192, 2, 132)
+    assert list(wide) == ["C=2", "C=4", "C=8", "C=16"]
+    assert wide["C=2"] == wf.FillPlan("cluster", 2, 4096, 4, 32, 128, 1)
+    mid = kbench.fill_plans(1024, 1024, 64, 132)
+    assert "warp x4" not in mid and mid["owned"].org == "owned"
+    assert [mid[f"C=1 l{n}"].lanes for n in (1, 2, 4)] == [1, 2, 4]
+    assert "owned" not in kbench.fill_plans(256, 1030, 4, 132)
+    assert set(kbench.FILL_SHAPES) >= {(128, 128, 32), (128, 128, 256),
+                                       (128, 128, 4096), (1024, 1024, 64),
+                                       (1024, 1024, 1056), (2048, 2048, 32),
+                                       (4096, 4096, 4), (8192, 8192, 2)}
+
+
+def test_bench_fill_cpu_path():
+    """``bench_fill`` on the CPU with a counting timer: every forced plan
+    goes through ``wavefront_fill`` (the plain fill here), is held against
+    ``base``, and no kernel is launched."""
+    calls = []
+
+    def timer(fn, n, warm):
+        fn()
+        calls.append(n)
+        return float(len(calls))
+
+    lines = []
+    n0 = (wf.wavefront_fill.launches, wf.wavefront_fill_variant.launches)
+    table = kbench.bench_fill("cpu", shapes=((40, 36, 3), (24, 136, 2)),
+                              log=lines.append, timer=timer)
+    assert set(table) == {(40, 36, 3), (24, 136, 2)}
+    for (S_q, S_t, B), row in table.items():
+        plans = kbench.fill_plans(S_q, S_t, B, 132)
+        assert row["plan"] == wf.fill_plan(S_q, S_t, B, 132)
+        assert all(row[k] > 0 for k in ("base", "own", *plans))
+    assert table[40, 36, 3]["plan"].org == "warp"
+    assert table[24, 136, 2]["plan"].org == "owned"
+    assert len(calls) == sum(2 + len(kbench.fill_plans(*k, 132))
+                             for k in table)
+    assert (wf.wavefront_fill.launches,
+            wf.wavefront_fill_variant.launches) == n0
+    assert lines[0].startswith("fill (40,36) B=3: base ")
+    assert "own plan warp C=1 W=128 lanes=4 per_block=4" in lines[0]
+    assert "warp x4 " in lines[0] and "warp x8 " in lines[0]
+
+
+def test_walk_plans_grid():
+    plans = kbench.walk_plans(4, 132)
+    assert list(plans) == ["thread", "R=32", "R=32 prefetch", "R=64",
+                           "R=64 prefetch"]
+    assert plans["thread"].R == 0
+    assert plans["R=32"] == wf.WalkPlan(32, 48, False, 1)
+    assert plans["R=64 prefetch"] == wf.WalkPlan(64, 144, True, 1)
+    assert kbench.walk_plans(1000, 132)["R=64"].warps == wf.WALK_WARPS
+    assert set(kbench.WALK_SHAPES) == {(1024, 1024, 64), (10240, 10240, 4),
+                                       (61440, 61440, 1)}
+
+
+def test_bench_walk_cpu_path():
+    """``bench_walk`` on the CPU with a counting timer: every walk plan
+    walks every tile through ``tile_backtrack`` (the plain walk here), the
+    plans agree, and no kernel is launched."""
+    calls = []
+
+    def timer(fn):
+        fn()
+        calls.append(1)
+        return 0.5
+
+    lines = []
+    n0 = wf.tile_backtrack.launches
+    table = kbench.bench_walk("cpu", shapes=((48, 40, 2),),
+                              log=lines.append, timer=timer)
+    row = table[48, 40, 2]
+    assert row["tiles"] == 1 and 40 <= row["rows"] <= 2 * 87
+    assert all(row[k] == 0.5 for k in kbench.walk_plans(2, 132))
+    assert len(calls) == 5
+    assert wf.tile_backtrack.launches == n0
+    assert lines[0].startswith("walk (48,40) B=2 tile=1024 x1, ")
+
+
+def test_related_codes_share_their_diagonal():
+    q, t = kbench.related_codes(3, 64, 80, "cpu", seed=1)
+    assert q.shape == (3, 64) and t.shape == (3, 80)
+    assert q.dtype == t.dtype == torch.int8
+    same = (q == t[:, :64]).float().mean()
+    assert 0.85 < float(same) < 0.99
