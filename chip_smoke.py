@@ -20,7 +20,10 @@ line):
    mismatching direction bytes on every written lane, 0 mismatching
    checkpoint words, packed-op bytes and walker states, and CIGARs equal
    to the NumPy reference on a subset; every organisation the direct
-   fill's plan can choose, forced at a small shape, and the walker under
+   fill's plan can choose, forced at a small shape; the streamed fill
+   under its card's plan and forced into every organisation of
+   ``stream_plan`` at the streamed shapes (a line names each plan and its
+   time); the walker under
    every walk plan, on walkers that leave on the left and the top edge and
    on a class whose width is no multiple of 16; every fill variant against
    the plain fill on the variant harness's golden problem and at
@@ -112,8 +115,15 @@ FORCED_FILLS = [(128, 128, 40, dict(org="warp", per_block=4)),
 # class width that is no multiple of 16 (narrower copies into the window)
 WALK_EDGES = [(2048, 2048, 8, 1024, "edges"), (1024, 1036, 4, 256, "any")]
 # (S_q, S_t, B) of the streamed route (more than 32 problems of a class at
-# least 1 Kbp wide; the mosaic genome's regions give ~50 of 2 Kbp)
-STREAM_SHAPES = [(1024, 1024, 64), (2048, 2048, 50)]
+# least 1 Kbp wide; the mosaic genome's regions give ~50 of 2 Kbp), K from
+# the aligner's stream_k: 2, 2, 8 (the variant harness's card-filling
+# batch) and 2 (the route's widest class)
+STREAM_SHAPES = [(1024, 1024, 64), (2048, 2048, 50), (1024, 1024, 1056),
+                 (8192, 8192, 34)]
+# the streamed fill's organisations beside the card's own plan, forced
+STREAM_FORCES = {"parallel owned": dict(kernel="owned"),
+                 "parallel cluster": dict(kernel="cluster"),
+                 "chain": dict(org="chain")}
 # (S_q, S_t, B) of the tiled route: the mosaic genome's 10 Kbp dp_indel
 # class, alone (<= 8 problems) and streamed (> 8), the narrowest giant
 # class the route rule produces ((S_q + S_t) * S_t > 2^27), and one 60 Kbp
@@ -519,19 +529,46 @@ class KernelPhase:
                 f"walker states, whole matrix and {n_tiles} tiles")
 
     def streamed(self, S_q, S_t, B):
-        wf, np = self.wf, self.np
+        """The streamed fill at one shape under the card's own plan (timed)
+        and under every organisation of STREAM_FORCES, each against the
+        plain streamed fill on every band lane; its traceback against the
+        plain one and against the direct route's ops."""
+        wf, np, torch = self.wf, self.np, self.torch
         K = wf.WavefrontAligner(device=self.dev).stream_k(B)
+        n = B // K
+        sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
         (qs, ts, ql, tl), (q, t, qlt, tlt) = self._inputs(S_q, S_t, B)
         fk, fp, tk, tp, dk = (_Timer() for _ in range(5))
+        own = wf.stream_plan_on(self.dev, S_q, S_t, n, K)
         wf.wavefront_fill_streamed(q, t, K)
-        wf.wavefront_fill(q, t)
+        p_d = wf.wavefront_fill(q, t)
         for _ in range(5):
             p_k = fk.kernel(lambda: wf.wavefront_fill_streamed(q, t, K))
-            dk.kernel(lambda: wf.wavefront_fill(q, t))
+            p_d = dk.kernel(lambda: wf.wavefront_fill(q, t))
         p_p = fp.plain(lambda: wf.wavefront_fill_streamed_torch(q, t, K))
         bad, worst = _band_diff(p_k, p_p, 0, S_q, S_t, K)
-        _require(bad, f"streamed fill ({S_q},{S_t},K={K})")
-        del p_p
+        _require(bad, f"streamed fill ({S_q},{S_t},K={K}) under {own}")
+        plans = {"own": own}
+        forced = []
+        for label, force in STREAM_FORCES.items():
+            try:
+                plan = wf.stream_plan(S_q, S_t, n, K, sms, **force)
+            except ValueError:
+                forced.append(f"{label}: not taken by the class")
+                continue
+            plans[label] = plan
+            wf.wavefront_fill_streamed(q, t, K, plan=plan)  # not timed
+            ms = _Timer()
+            got = ms.kernel(
+                lambda: wf.wavefront_fill_streamed(q, t, K, plan=plan))
+            b2, w2 = _band_diff(got, p_p, 0, S_q, S_t, K)
+            _require(b2, f"streamed fill ({S_q},{S_t},K={K}) under {plan}")
+            worst = max(worst, w2)
+            f = plan.fill
+            forced.append(f"{label} ({f.org} C={f.C} W={f.W} "
+                          f"lanes={f.lanes} N={f.N}) {ms.mean:.3f} ms")
+            del got
+        del p_p, p_d
         wf.backtrack_pack(p_k, qlt, tlt, K)
         for _ in range(3):
             o_k = tk.kernel(lambda: wf.backtrack_pack(p_k, qlt, tlt, K))
@@ -540,16 +577,20 @@ class KernelPhase:
                  f"{S_t},K={K})")
         direct = wf.backtrack_pack(wf.wavefront_fill(q, t), qlt, tlt)
         _require(int((o_k != direct).sum()), "streamed vs direct ops")
-        _check_cigars(wf, qs, ts, ql, tl, o_k.cpu().numpy(), NUMPY_CHECK_N,
+        n_np = NUMPY_CHECK_N if max(S_q, S_t) <= 2048 else 0
+        _check_cigars(wf, qs, ts, ql, tl, o_k.cpu().numpy(), n_np,
                       f"streamed ({S_q},{S_t})")
         cells = int((ql.astype(np.int64) * tl).sum())
-        log(f"[kernels] streamed ({S_q},{S_t}) B={B} K={K}: fill "
+        f = own.fill
+        log(f"[kernels] streamed ({S_q},{S_t}) B={B} K={K}: plan {own.org} "
+            f"{f.org} C={f.C} W={f.W} lanes={f.lanes} N={f.N}; fill "
             f"{fk.typical:.3f} ms (plain {fp.mean:.1f} ms, "
             f"{cells / fk.typical / 1e6:.2f} GCUPS; direct fill of the same "
-            f"batch {dk.typical:.3f} ms), traceback {tk.typical:.3f} ms "
-            f"(plain {tp.mean:.1f} ms); 0 byte mismatches, ops = direct "
-            f"route's; "
-            f"{NUMPY_CHECK_N} CIGARs = NumPy")
+            f"batch {dk.typical:.3f} ms), p {p_k.numel()} bytes (direct "
+            f"{B * (S_q + S_t - 1) * S_t}); forced: {'; '.join(forced)}; "
+            f"traceback {tk.typical:.3f} ms (plain {tp.mean:.1f} ms); 0 band "
+            f"byte mismatches under {len(plans)} plans against the plain, "
+            f"ops = plain and direct route's; {n_np} CIGARs = NumPy")
         self._record("wavefront_fill_streamed", (S_q, S_t, B), worst,
                      fk.typical, fp.mean, OPS_FILL * B * S_q * S_t,
                      B * (S_q + S_t) + B * S_q * S_t)

@@ -1,10 +1,24 @@
 // The owned-lane fill of the anti-diagonal affine-gap DP: one block per
 // problem, every thread owns four neighbouring lanes for the whole problem.
 // Shared by the direct fill (sedef_fill_owned of wavefront_fill.cu, the
-// organisation fill_plan of sedef_tpu_torch/ops/wavefront.py calls "owned")
-// and the variant harness (hoist, unrollN, pack, packuN and vibmax of
-// wavefront_fill_variants.cu, which describes them).  The recurrence is the
-// one in the docstring of sedef_tpu_torch/ops/wavefront.py.
+// organisation fill_plan of sedef_tpu_torch/ops/wavefront.py calls "owned"),
+// the streamed fill (sedef_fill_streamed, the same block per problem written
+// into the stream layout: fill_owned_streamed) and the variant harness
+// (hoist, unrollN, pack, packuN and vibmax of wavefront_fill_variants.cu,
+// which describes them).  The recurrence is the one in the docstring of
+// sedef_tpu_torch/ops/wavefront.py.
+//
+// Stream mode (STREAM).  Problem b = s * K + k writes its direction row r at
+// stream row k * S_q + r of stream s, the stream's rows (K * S_q + S_t - 1,
+// S_t) as wavefront_fill.cu lays them out.  Problem k's band there, lanes t
+// with 0 <= r - t < S_q, shares its rows with the bands of problems k - 1
+// and k + 1, which other blocks fill at the same time.  So a thread stores
+// only its own band bytes: one 32-bit word in the rows in which all four of
+// its lanes are in the band (LPT - 1 <= r - t0 < S_q), each in-band byte
+// alone in the rows in which its group meets the band partly (r - t0 in
+// [0, LPT - 2] and [S_q, S_q + LPT - 2]: about six rows a group).  Byte
+// stores from different blocks to different bytes do not race; a word
+// store there would overwrite a neighbour's byte.
 
 #pragma once
 
@@ -84,7 +98,7 @@ __device__ __forceinline__ int score_of(const Owned& o, int k, int qc,
 // wildcard before the thread's first row); a code travels with its
 // diagonal, one lane a row, so a row loads one code, that of lane t0.  A
 // thread's rows are consecutive, so nothing is lost between them.
-template <bool PACK, bool VIB>
+template <bool PACK, bool VIB, bool STREAM>
 __device__ __forceinline__ void own_row(int r, int par, int t0, int S_q,
                                         int S_t, int32_t* U, int32_t* Y,
                                         int32_t* P, int32_t* V,
@@ -159,14 +173,25 @@ __device__ __forceinline__ void own_row(int r, int par, int t0, int S_q,
   if (!PACK)
     reinterpret_cast<int4*>(V + par * S_t)[g] =
         make_int4(vn[0], vn[1], vn[2], vn[3]);
-  reinterpret_cast<uint32_t*>(prow)[g] = word;
+  if (STREAM && !(r - t0 >= LPT - 1 && r - t0 < S_q)) {
+    // the group meets the band partly: the word's other bytes are the
+    // stream's neighbouring problems'
+#pragma unroll
+    for (int k = 0; k < LPT; ++k)
+      if ((unsigned)(r - t0 - k) < (unsigned)S_q)
+        prow[t0 + k] = (uint8_t)(word >> (8 * k));
+  } else {
+    reinterpret_cast<uint32_t*>(prow)[g] = word;
+  }
 }
 
-template <bool PACK, int UNROLL, bool VIB = false>
-__global__ void fill_owned(const int8_t* __restrict__ qseq,
-                           const int8_t* __restrict__ tgt,
-                           uint8_t* __restrict__ p, int S_q, int S_t,
-                           Score s) {
+// The block of problem blockIdx.x.  STREAM: problems come in streams of
+// ``K`` (see above); otherwise problem b's rows start at b * (S_q + S_t - 1).
+template <bool PACK, int UNROLL, bool VIB, bool STREAM>
+__device__ __forceinline__ void owned_block(const int8_t* __restrict__ qseq,
+                                            const int8_t* __restrict__ tgt,
+                                            uint8_t* __restrict__ p, int S_q,
+                                            int S_t, const Score& s, int K) {
   extern __shared__ int4 smem4[];
   int32_t* smem = reinterpret_cast<int32_t*>(smem4);
   const int b = blockIdx.x;
@@ -188,7 +213,10 @@ __global__ void fill_owned(const int8_t* __restrict__ qseq,
   int qt[LPT] = {WILD, WILD, WILD, WILD};
   __syncthreads();
   const int n_rows = S_q + S_t - 1;
-  uint8_t* pb = p + (size_t)b * n_rows * S_t;
+  const size_t row0 =
+      STREAM ? (size_t)(b / K) * (K * S_q + S_t - 1) + (size_t)(b % K) * S_q
+             : (size_t)b * n_rows;
+  uint8_t* pb = p + row0 * S_t;
   for (int rb = 0; rb < n_rows; rb += UNROLL) {
 #pragma unroll
     for (int i = 0; i < UNROLL; ++i) {
@@ -196,11 +224,28 @@ __global__ void fill_owned(const int8_t* __restrict__ qseq,
       // rb is a multiple of UNROLL, so an even UNROLL fixes the parity
       const int par = UNROLL % 2 == 0 ? (i & 1) : (r & 1);
       if (r < n_rows && t0 < S_t && t0 <= r && t0 + LPT - 1 >= r - S_q + 1)
-        own_row<PACK, VIB>(r, par, t0, S_q, S_t, U, Y, P, V, qs, o, s,
-                           pb + (size_t)r * S_t, qt);
+        own_row<PACK, VIB, STREAM>(r, par, t0, S_q, S_t, U, Y, P, V, qs, o,
+                                   s, pb + (size_t)r * S_t, qt);
       __syncthreads();
     }
   }
+}
+
+template <bool PACK, int UNROLL, bool VIB = false>
+__global__ void fill_owned(const int8_t* __restrict__ qseq,
+                           const int8_t* __restrict__ tgt,
+                           uint8_t* __restrict__ p, int S_q, int S_t,
+                           Score s) {
+  owned_block<PACK, UNROLL, VIB, false>(qseq, tgt, p, S_q, S_t, s, 1);
+}
+
+// n_streams * K blocks, problem b = s * K + k into stream s at row k * S_q
+template <int UNROLL>
+__global__ void fill_owned_streamed(const int8_t* __restrict__ qseq,
+                                    const int8_t* __restrict__ tgt,
+                                    uint8_t* __restrict__ p, int S_q,
+                                    int S_t, Score s, int K) {
+  owned_block<false, UNROLL, false, true>(qseq, tgt, p, S_q, S_t, s, K);
 }
 
 }  // namespace

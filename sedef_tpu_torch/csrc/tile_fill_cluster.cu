@@ -8,7 +8,11 @@
 // (tile_checkpoint_streamed, tile_refill_streamed), and, run from the zero
 // state over all S_q + S_t - 1 rows straight into the direction matrix,
 // wavefront_pallas_batch (wavefront_fill; sedef_fill_cluster below: no
-// checkpoint is read or written, and the row count need not be even).  The
+// checkpoint is read or written, and the row count need not be even), and
+// with K > 1 problems a stream, or each of a stream's problems in a cluster
+// of its own written into the stream layout (MODE_PAR),
+// wavefront_pipelined_batch (wavefront_fill_streamed, under the plan
+// stream_plan calls "chain" or "parallel" over clusters).  The
 // recurrence is the
 // one in the docstring of sedef_tpu_torch/ops/wavefront.py; the stream
 // layout is wavefront_fill.cu's: stream row r, lane t belongs to problem
@@ -97,8 +101,13 @@ using sedef::Score;
 using sedef::WILD;
 using sedef::dp_cell;
 
-// MODE_FULL: a whole fill from the zero state into the direction matrix
-enum { MODE_CKPT = 1, MODE_REFILL = 2, MODE_FULL = 3 };
+// MODE_FULL: a whole fill from the zero state into the direction matrix.
+// MODE_PAR: the same, one problem a cluster (K = 1), problem b written at
+// stream row (b % ks) * S_q of stream b / ks of a layout of streams of ks
+// problems (wavefront_fill.cu); the stream's other problems share its rows,
+// so a thread stores only its own band bytes (fill_owned.cuh's stream mode
+// says how).
+enum { MODE_CKPT = 1, MODE_REFILL = 2, MODE_FULL = 3, MODE_PAR = 4 };
 
 constexpr int MAX_THREADS = 1024;
 constexpr int MAX_LPT = 4;
@@ -248,9 +257,12 @@ __device__ __forceinline__ void fill_row(int r, int par, const Lanes& L,
     L.SV[slot] = vn[LPT - 1];
   }
   if (MODE != MODE_CKPT) {
-    if (LPT == 1) {
+    // MODE_PAR: whole words only where all the thread's lanes are in band
+    const int m0 = r - L.t0;
+    const bool whole = MODE != MODE_PAR || (m0 >= LPT - 1 && m0 < K * S_q);
+    if (LPT == 1) {  // a thread's rows are its lane's band rows
       prow[L.t0] = (uint8_t)word;
-    } else if (L.vec) {
+    } else if (L.vec && whole) {
       if (LPT == 4)
         *reinterpret_cast<uint32_t*>(prow + L.t0) = word;
       else
@@ -258,7 +270,9 @@ __device__ __forceinline__ void fill_row(int r, int par, const Lanes& L,
     } else {
 #pragma unroll
       for (int k = 0; k < LPT; ++k)
-        if (L.t0 + k < S_t) prow[L.t0 + k] = (uint8_t)(word >> (8 * k));
+        if (L.t0 + k < S_t &&
+            (MODE != MODE_PAR || (unsigned)(m0 - k) < (unsigned)(K * S_q)))
+          prow[L.t0 + k] = (uint8_t)(word >> (8 * k));
     }
   }
   if (++T.j0 == S_q) {
@@ -296,7 +310,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
                       uint8_t* __restrict__ p_tile,
                       int32_t* __restrict__ ckpt, int K, int S_q, int S_t,
                       int r_begin, int r_end, int tile, int n_tiles, int C,
-                      int W, int N, int ring, Score s) {
+                      int W, int N, int ring, int ks, Score s) {
   extern __shared__ int4 smem4[];
   int32_t* smem = reinterpret_cast<int32_t*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -380,9 +394,14 @@ __global__ void __launch_bounds__(MAX_THREADS)
   // the first row of a tile at or after the block's first row
   int next_ck = (blk_r0 + tile - 1) / tile * tile;
   // the stream's rows, row 0 = r_begin: a tile's, or (MODE_FULL, where
-  // ``tile`` is the whole row count) the problem's direction matrix
+  // ``tile`` is the whole row count) the stream's direction matrix, or
+  // (MODE_PAR) the problem's rows inside its stream
   uint8_t* pb = p_tile;
-  if (MODE != MODE_CKPT) pb += (size_t)sidx * tile * S_t;
+  if (MODE == MODE_PAR)
+    pb += ((size_t)(sidx / ks) * (ks * S_q + S_t - 1) +
+           (size_t)(sidx % ks) * S_q) * S_t;
+  else if (MODE != MODE_CKPT)
+    pb += (size_t)sidx * tile * S_t;
 
   auto do_row = [&](int r, int par, int lo, int hi) {
     if (r < lo || r >= hi) return;  // block-uniform
@@ -467,7 +486,7 @@ struct Args {
   const int8_t *qseq, *tgt;
   uint8_t* p_tile;
   int32_t* ckpt;
-  int n_streams, K, S_q, S_t, tile, ti;
+  int n_streams, K, S_q, S_t, tile, ti, ks;
   Score s;
   cudaStream_t cs;
 };
@@ -494,7 +513,7 @@ int launch_as(const TilePlan& pl, const Args& a, int* out) {
                                                                : n_rows;
     e = cudaLaunchKernelEx(&cfg, kernel, a.qseq, a.tgt, a.p_tile, a.ckpt,
                            a.K, a.S_q, a.S_t, r0, r1, a.tile, n_tiles, pl.C,
-                           pl.W, pl.N, pl.ring, a.s);
+                           pl.W, pl.N, pl.ring, a.ks, a.s);
   }
   if (e != cudaSuccess) {
     cudaGetLastError();  // a refused launch must not fail the next one
@@ -513,17 +532,19 @@ int launch(const TilePlan& pl, const Args& a, int* out) {
   }
 }
 
+// ``ks``: problems a stream of MODE_PAR's output layout (1 otherwise).
 template <int MODE>
 int run(const TilePlan& pl, const void* qseq, const void* tgt, void* p_tile,
         void* ckpt, int n_streams, int K, int S_q, int S_t, int tile, int ti,
-        int match, int mis, int gapo, int gape, void* stream) {
+        int match, int mis, int gapo, int gape, void* stream, int ks = 1) {
   if (n_streams <= 0) return (int)cudaGetLastError();
   // a thread's lanes reach their top rows one after the other (fill_row's
   // j0 == k), so a problem is at least as long as a thread's group is wide
-  if (K < 1 || S_q < pl.LPT || S_t < 1 || (long long)pl.C * pl.W < S_t)
+  if (K < 1 || ks < 1 || (MODE == MODE_PAR && K != 1) || S_q < pl.LPT ||
+      S_t < 1 || (long long)pl.C * pl.W < S_t)
     return (int)cudaErrorInvalidValue;
-  if (MODE == MODE_FULL)
-    tile = S_q + S_t - 1;  // one "tile": the direction matrix's rows
+  if (MODE == MODE_FULL || MODE == MODE_PAR)
+    tile = K * S_q + S_t - 1;  // one "tile": the direction matrix's rows
   else if (tile < 2 || tile % 2)
     return (int)cudaErrorInvalidValue;
   const int qe2 = 2 * (gapo + gape);
@@ -531,7 +552,7 @@ int run(const TilePlan& pl, const void* qseq, const void* tgt, void* p_tile,
                   static_cast<const int8_t*>(tgt),
                   static_cast<uint8_t*>(p_tile),
                   static_cast<int32_t*>(ckpt),
-                  n_streams, K, S_q, S_t, tile, ti,
+                  n_streams, K, S_q, S_t, tile, ti, ks,
                   {match, mis, gapo, qe2, match + qe2},
                   static_cast<cudaStream_t>(stream)};
   return launch<MODE>(pl, a, nullptr);
@@ -568,22 +589,31 @@ int sedef_tile_refill(const void* qseq, const void* tgt, const void* ckpt,
                           tile, ti, match, mis, gapo, gape, stream);
 }
 
-// The direct fill under the same plan: B problems (qseq (B, S_q), tgt (B,
-// S_t) int8), each from the zero state over all S_q + S_t - 1 rows into p
-// (B, S_q + S_t - 1, S_t) uint8.  C = 1 is one block per problem with owned
-// lanes.
-int sedef_fill_cluster(const void* qseq, const void* tgt, void* p, int B,
-                       int S_q, int S_t, int match, int mis, int gapo,
-                       int gape, int C, int W, int LPT, int N, int ring,
-                       void* stream) {
-  return run<MODE_FULL>({C, W, LPT, N, ring}, qseq, tgt, p, nullptr, B, 1,
-                        S_q, S_t, 0, 0, match, mis, gapo, gape, stream);
+// The whole fill under the same plan, from the zero state into the
+// direction rows of n_streams streams of K problems (qseq (n_streams * K,
+// S_q), tgt (n_streams * K, S_t) int8, problem k of stream s at row s * K +
+// k; p (n_streams, K * S_q + S_t - 1, S_t) uint8; K = 1 is the direct
+// fill).  ``parallel`` 0: a cluster a stream, its K problems one after the
+// other in the cluster's lanes; 1: a cluster a problem, all at once, each
+// written into its stream's rows (MODE_PAR).  C = 1 is one block per
+// cluster with owned lanes.
+int sedef_fill_cluster(const void* qseq, const void* tgt, void* p,
+                       int n_streams, int K, int S_q, int S_t, int match,
+                       int mis, int gapo, int gape, int parallel, int C,
+                       int W, int LPT, int N, int ring, void* stream) {
+  const TilePlan pl = {C, W, LPT, N, ring};
+  if (parallel)
+    return run<MODE_PAR>(pl, qseq, tgt, p, nullptr, n_streams * K, 1, S_q,
+                         S_t, 0, 0, match, mis, gapo, gape, stream, K);
+  return run<MODE_FULL>(pl, qseq, tgt, p, nullptr, n_streams, K, S_q, S_t,
+                        0, 0, match, mis, gapo, gape, stream);
 }
 
 // Clusters of the plan's shape that the card can hold at once
 // (cudaOccupancyMaxActiveClusters), into *out; 0 means a launch would be
 // refused.  ``mode`` picks the kernel: 0 the checkpoint pass, 1 the
-// refill, 2 the whole fill.  Returns a CUDA error code.
+// refill, 2 the whole fill, 3 the whole fill of one of a stream's problems
+// (MODE_PAR).  Returns a CUDA error code.
 int sedef_tile_cluster_occupancy(int mode, int n_streams, int C, int W,
                                  int LPT, int N, int ring, int* out) {
   const TilePlan pl = {C, W, LPT, N, ring};
@@ -592,7 +622,8 @@ int sedef_tile_cluster_occupancy(int mode, int n_streams, int C, int W,
   switch (mode) {
     case 0: return launch<MODE_CKPT>(pl, a, out);
     case 1: return launch<MODE_REFILL>(pl, a, out);
-    default: return launch<MODE_FULL>(pl, a, out);
+    case 2: return launch<MODE_FULL>(pl, a, out);
+    default: return launch<MODE_PAR>(pl, a, out);
   }
 }
 

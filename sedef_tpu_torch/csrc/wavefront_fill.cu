@@ -10,15 +10,15 @@
 //                               class take sedef_fill_cluster of
 //                               tile_fill_cluster.cu (fill_plan of
 //                               sedef_tpu_torch/ops/wavefront.py chooses)
-//   sedef_fill_streamed         wavefront_pipelined_batch (_pipe_dp_row)
+//   sedef_fill_streamed         wavefront_pipelined_batch (:679, body
+//                               _pipe_dp_row :619), under stream_plan
 // All fills compute the same bytes on every band lane of the same layout.
 // The recurrence is the one in the docstring of
 // sedef_tpu_torch/ops/wavefront.py (ksw2 extz2's difference encoding,
 // rotated so that row r is anti-diagonal r and lane t is target index t);
-// the cell is dp_cell of dp_cell.cuh in the warp and the owned-lane fill,
-// and the same statements written out in the streamed template.
+// the cell is dp_cell of dp_cell.cuh.
 //
-// Streams.  A stream is K problems of one (S_q, S_t) class, run back to
+// Streams.  A stream is K problems of one (S_q, S_t) class laid back to
 // back in the same lanes and staggered by S_q rows (K = 1 is the direct
 // fill): stream row r, lane t belongs to problem k = m / S_q at query index
 // j = m % S_q, m = r - t, for 0 <= m < K * S_q.  Lane t hands over from
@@ -66,13 +66,25 @@
 // at the instruction rate of its SM.  Still one barrier per row: lane t
 // needs lane t - 1 of the row before.
 //
-// The streamed fill: one block per stream, threads striding over a row's
-// band so neighbouring threads store neighbouring bytes, the state (u, y in
-// place; x, v ping-ponged by row parity because lane t reads the t-1
-// neighbour of the previous row) in shared memory with the stream's codes
-// whenever 24 * S_t + K * (S_q + S_t) bytes fit, otherwise in a global
-// scratch slab per stream (L2-resident).  Streams remove the band's ramp-up
-// and ramp-down rows (~S_q + S_t rows per problem become ~S_q).
+// The streamed fill.  On the TPU a stream exists because the VPU computes
+// all 128 lanes of a row, in band or not: chaining K problems in the same
+// lanes fills the ramp rows of one with the band of the next (~2x less
+// fill there).  On the H100 a warp whose lanes are all out of band issues
+// nothing and other blocks take its issue slots, so a chain mostly makes
+// the chain of dependent rows K times longer (the port's first streamed
+// fill, one block per stream, K * S_q + S_t - 1 rows on one SM, ran at 7%
+// of its bound).  The problems of a stream never read each other, so here
+// they are filled side by side ("parallel"): each problem under the kernel
+// fill_plan gives a direct fill of n_streams * K problems (a block of
+// owned lanes, or a thread-block cluster, tile_fill_cluster.cu's
+// MODE_PAR), written straight into the stream layout at stream row k *
+// S_q, storing only its own band bytes (the rows are shared with the
+// neighbouring problems; fill_owned.cuh says how).  That has the direct
+// fill's cost and needs no global state slab at any class.  "chain" keeps
+// a stream's K problems one after the other on one cluster
+// (tile_fill_cluster.cu's MODE_FULL with K > 1), and only when forced:
+// it loses to "parallel" at every square class, and where it beats it
+// (narrow queries in long streams) the direct fill beats both.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -162,83 +174,58 @@ __global__ void fill_warp_kernel(const int8_t* __restrict__ qseq,
   }
 }
 
-template <bool SMEM>
-__global__ void fill_streamed_kernel(const int8_t* __restrict__ qseq,
-                                     const int8_t* __restrict__ tgt,
-                                     uint8_t* __restrict__ p,
-                                     int32_t* __restrict__ scratch, int K,
-                                     int S_q, int S_t, int match, int mis,
-                                     int gapo, int qe2, int max_sc) {
-  extern __shared__ int32_t smem[];
-  const int s = blockIdx.x;
-  const int Q = K * S_q;  // the stream's query length
-  int32_t* st = SMEM ? smem : scratch + (size_t)s * 6 * S_t;
-  int32_t* U = st;            // u at lane t (in place)
-  int32_t* Y = st + S_t;      // y at lane t (in place)
-  int32_t* X = st + 2 * S_t;  // x, two row-parity planes
-  int32_t* V = st + 4 * S_t;  // v, two row-parity planes
-  const int8_t* qg = qseq + (size_t)s * Q;
-  const int8_t* tg = tgt + (size_t)s * K * S_t;
-  const int8_t* qs = qg;
-  const int8_t* ts = tg;
-  if (SMEM) {
-    int8_t* codes = reinterpret_cast<int8_t*>(smem + 6 * S_t);
-    for (int k = threadIdx.x; k < K * S_t; k += blockDim.x) codes[k] = tg[k];
-    for (int k = threadIdx.x; k < Q; k += blockDim.x)
-      codes[K * S_t + k] = qg[k];
-    ts = codes;
-    qs = codes + K * S_t;
-  }
-  __syncthreads();
-  const int n_rows = Q + S_t - 1;
-  uint8_t* pb = p + (size_t)s * n_rows * S_t;
-
-  for (int r = 0; r < n_rows; ++r) {
-    const int st0 = max(0, r - Q + 1);
-    const int en0 = min(r, S_t - 1);
-    const int32_t* Xp = X + ((r & 1) ^ 1) * S_t;
-    const int32_t* Vp = V + ((r & 1) ^ 1) * S_t;
-    int32_t* Xc = X + (r & 1) * S_t;
-    int32_t* Vc = V + (r & 1) * S_t;
-    uint8_t* prow = pb + (size_t)r * S_t;
-    for (int t = st0 + threadIdx.x; t <= en0; t += blockDim.x) {
-      const int m = r - t;  // in [0, Q) inside the band
-      const int k = m / S_q;
-      const int j = m - k * S_q;
-      const int xs = t == 0 ? 0 : Xp[t - 1];
-      const int vs = t == 0 ? (j > 0 ? gapo : 0) : Vp[t - 1];
-      const int ub = j == 0 ? (t > 0 ? gapo : 0) : U[t];
-      const int yb = j == 0 ? 0 : Y[t];
-      const int qc = qs[m];
-      const int tc = ts[k * S_t + t];
-      const int sc = (qc >= 4 || tc >= 4) ? 0 : (qc == tc ? match : mis);
-      int z = sc + qe2;
-      const int a = xs + vs;
-      const int bb = yb + ub;
-      int d = a > z ? 1 : 0;
-      z = max(z, a);
-      d = bb > z ? 2 : d;
-      z = max(z, bb);
-      z = min(z, max_sc);
-      const int z2 = z - gapo;
-      const int a2 = a - z2;
-      const int b2 = bb - z2;
-      U[t] = z - vs;
-      Y[t] = max(b2, 0);
-      Vc[t] = z - ub;
-      Xc[t] = max(a2, 0);
-      d |= (a2 > 0 ? 8 : 0) | (b2 > 0 ? 16 : 0);
-      prow[t] = (uint8_t)d;
-    }
-    __syncthreads();
-  }
-}
-
 constexpr long long SMEM_MAX = 227LL * 1024;
+
+// The owned-lane fill of B problems: the direct layout, or (STREAM) streams
+// of K problems.
+template <bool STREAM>
+int launch_owned(const void* qseq, const void* tgt, void* p, int B, int K,
+                 int S_q, int S_t, int match, int mis, int gapo, int gape,
+                 int unroll, void* stream) {
+  const long long smem = 24LL * S_t + S_q;  // six int32 planes and the query
+  if (S_q < 1 || S_t < 1 || S_t % sedef::LPT || S_t > 1024 * sedef::LPT ||
+      smem > SMEM_MAX || (unroll != 2 && unroll != 4))
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaGetLastError();
+  const int qe2 = 2 * (gapo + gape);
+  const Score s = {match, mis, gapo, qe2, match + qe2};
+  const int threads = (S_t / sedef::LPT + 31) / 32 * 32;
+  const int8_t* q = static_cast<const int8_t*>(qseq);
+  const int8_t* t = static_cast<const int8_t*>(tgt);
+  uint8_t* pp = static_cast<uint8_t*>(p);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if constexpr (STREAM) {
+    auto kernel = unroll == 2 ? sedef::fill_owned_streamed<2>
+                              : sedef::fill_owned_streamed<4>;
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess)
+      kernel<<<B, threads, (size_t)smem, cs>>>(q, t, pp, S_q, S_t, s, K);
+  } else {
+    auto kernel = unroll == 2 ? sedef::fill_owned<false, 2>
+                              : sedef::fill_owned<false, 4>;
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess)
+      kernel<<<B, threads, (size_t)smem, cs>>>(q, t, pp, S_q, S_t, s);
+  }
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
+
+// tile_fill_cluster.cu
+int sedef_fill_cluster(const void* qseq, const void* tgt, void* p,
+                       int n_streams, int K, int S_q, int S_t, int match,
+                       int mis, int gapo, int gape, int parallel, int C,
+                       int W, int LPT, int N, int ring, void* stream);
 
 // Direct fill of a class of at most 128 lanes, one warp per problem and
 // ``per_block`` problems a block.  qseq (B, S_q) int8, tgt (B, S_t) int8
@@ -276,63 +263,37 @@ int sedef_fill_warp(const void* qseq, const void* tgt, void* p, int B,
 int sedef_fill_owned(const void* qseq, const void* tgt, void* p, int B,
                      int S_q, int S_t, int match, int mis, int gapo, int gape,
                      int unroll, void* stream) {
-  const long long smem = 24LL * S_t + S_q;  // six int32 planes and the query
-  if (S_q < 1 || S_t < 1 || S_t % sedef::LPT || S_t > 1024 * sedef::LPT ||
-      smem > SMEM_MAX || (unroll != 2 && unroll != 4))
-    return (int)cudaErrorInvalidValue;
-  if (B <= 0) return (int)cudaGetLastError();
-  const int qe2 = 2 * (gapo + gape);
-  const Score s = {match, mis, gapo, qe2, match + qe2};
-  auto kernel =
-      unroll == 2 ? sedef::fill_owned<false, 2> : sedef::fill_owned<false, 4>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
-  }
-  const int threads = (S_t / sedef::LPT + 31) / 32 * 32;
-  kernel<<<B, threads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(qseq), static_cast<const int8_t*>(tgt),
-      static_cast<uint8_t*>(p), S_q, S_t, s);
-  return (int)cudaGetLastError();
+  return launch_owned<false>(qseq, tgt, p, B, 1, S_q, S_t, match, mis, gapo,
+                             gape, unroll, stream);
 }
 
-// Bytes of dynamic shared memory a streamed fill needs to keep its state
-// and the stream's codes on chip, or 0 when they must live in global memory
-// (the caller then passes a (n_streams, 6, S_t) int32 scratch slab).
-int sedef_fill_smem_bytes(int K, int S_q, int S_t) {
-  const long long need = 24LL * S_t + (long long)K * (S_q + S_t);
-  return need <= SMEM_MAX ? (int)need : 0;
-}
-
-// Streamed fill.  qseq (n_streams * K, S_q), tgt (n_streams * K, S_t),
-// problem k of stream s at row s * K + k; p (n_streams, K * S_q + S_t - 1,
-// S_t) uint8.  Launches on ``stream`` without synchronising; returns
-// cudaGetLastError().
+// Streamed fill of n_streams streams of K problems: qseq (n_streams * K,
+// S_q), tgt (n_streams * K, S_t) int8, problem k of stream s at row s * K +
+// k; p (n_streams, K * S_q + S_t - 1, S_t) uint8.  Under the plan of
+// stream_plan (sedef_tpu_torch/ops/wavefront.py): ``org`` 0, "parallel" over
+// owned lanes (one block a problem, ``N`` = 2 or 4 rows an unrolled step);
+// 1, "parallel" over a cluster of C blocks of W lanes a problem (LPT lanes
+// a thread, a cluster barrier every N rows, seam rings of ``ring`` slots);
+// 2, "chain": the same cluster fill, one stream of K problems a cluster.
+// Launches on ``stream`` without synchronising; returns a CUDA error code
+// (cudaErrorInvalidValue for a plan or a class the kernel does not take).
 int sedef_fill_streamed(const void* qseq, const void* tgt, void* p,
-                        void* scratch, int n_streams, int K, int S_q,
-                        int S_t, int match, int mis, int gapo, int gape,
-                        int threads, void* stream) {
-  const int qe2 = 2 * (gapo + gape);
-  const int max_sc = match + qe2;
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (n_streams <= 0) return (int)cudaGetLastError();
-  const int8_t* q = static_cast<const int8_t*>(qseq);
-  const int8_t* t = static_cast<const int8_t*>(tgt);
-  uint8_t* pp = static_cast<uint8_t*>(p);
-  const int smem = sedef_fill_smem_bytes(K, S_q, S_t);
-  if (smem > 0) {
-    cudaFuncSetAttribute(fill_streamed_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    fill_streamed_kernel<true><<<n_streams, threads, smem, cs>>>(
-        q, t, pp, nullptr, K, S_q, S_t, match, mis, gapo, qe2, max_sc);
-  } else {
-    fill_streamed_kernel<false><<<n_streams, threads, 0, cs>>>(
-        q, t, pp, static_cast<int32_t*>(scratch), K, S_q, S_t, match, mis,
-        gapo, qe2, max_sc);
+                        int n_streams, int K, int S_q, int S_t, int match,
+                        int mis, int gapo, int gape, int org, int C, int W,
+                        int LPT, int N, int ring, void* stream) {
+  if (K < 1) return (int)cudaErrorInvalidValue;
+  switch (org) {
+    case 0:
+      return launch_owned<true>(qseq, tgt, p, n_streams * K, K, S_q, S_t,
+                                match, mis, gapo, gape, N, stream);
+    case 1:
+    case 2:
+      return sedef_fill_cluster(qseq, tgt, p, n_streams, K, S_q, S_t, match,
+                                mis, gapo, gape, org == 1, C, W, LPT, N,
+                                ring, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

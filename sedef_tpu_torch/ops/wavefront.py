@@ -7,10 +7,10 @@ Replacement for the reference's ksw2 ``extz2_sse`` kernel
 reference already uses the rotated (r = i + j) difference-recurrence
 formulation with 16-lane int8 SSE; here the same recurrence runs in
 hand-written CUDA kernels (``csrc/wavefront_fill.cu``,
-``csrc/tile_fill_cluster.cu``; ``fill_plan`` chooses the organisation of a
-launch) that write the direction matrix to device memory, and a second
-kernel (``csrc/traceback_pack.cu``) walks it back into 2-bit packed ops, so
-only one code per anti-diagonal reaches the host.  Each kernel has a plain
+``csrc/tile_fill_cluster.cu``; ``fill_plan`` and ``stream_plan`` choose the
+organisation of a launch) that write the direction matrix to device memory,
+and a second kernel (``csrc/traceback_pack.cu``) walks it back into 2-bit
+packed ops, so only one code per anti-diagonal reaches the host.  Each kernel has a plain
 PyTorch version beside it (``wavefront_fill_torch``,
 ``backtrack_pack_torch``): it is the path for tensors on the CPU, and what
 the kernels are checked against on the card.  ``wavefront_fill_variant``
@@ -477,11 +477,10 @@ def _kernels():
                 lib = ctypes.CDLL(str(build_cuda()))
                 vp, ci = ctypes.c_void_p, ctypes.c_int
                 sigs = {
-                    "sedef_fill_smem_bytes": [ci] * 3,
                     "sedef_fill_warp": [vp] * 3 + [ci] * 8 + [vp],
                     "sedef_fill_owned": [vp] * 3 + [ci] * 8 + [vp],
-                    "sedef_fill_cluster": [vp] * 3 + [ci] * 12 + [vp],
-                    "sedef_fill_streamed": [vp] * 4 + [ci] * 9 + [vp],
+                    "sedef_fill_cluster": [vp] * 3 + [ci] * 14 + [vp],
+                    "sedef_fill_streamed": [vp] * 3 + [ci] * 14 + [vp],
                     "sedef_tile_ckpt": [vp] * 3 + [ci] * 14 + [vp],
                     "sedef_tile_refill": [vp] * 4 + [ci] * 15 + [vp],
                     "sedef_tile_cluster_occupancy": (
@@ -546,12 +545,12 @@ def _check_tile(tile: int) -> None:
         raise ValueError("tile must be a positive multiple of 4 rows")
 
 
-def _threads(n_streams: int, width: int) -> int:
-    """Threads stride over a row's band (at most ``width`` lanes); few
-    streams get wide blocks, many streams narrower ones so that several
-    blocks share an SM."""
+def _threads(B: int, width: int) -> int:
+    """The block of the variant ``base``, whose threads stride over a
+    row's band (at most ``width`` lanes): few problems get wide blocks,
+    many problems narrower ones so that several blocks share an SM."""
     width = -(-width // 32) * 32
-    return min(1024 if n_streams < 264 else 256, width)
+    return min(1024 if B < 264 else 256, width)
 
 
 def _launch(wrapper, dev: torch.device, fn, *args) -> None:
@@ -568,13 +567,6 @@ def _launch(wrapper, dev: torch.device, fn, *args) -> None:
                            f"error {rc}")
     with _COUNT_LOCK:
         wrapper.launches += 1
-
-
-def _scratch(lib, K: int, S_q: int, S_t: int, n: int, dev):
-    """Global slab for a fill whose state does not fit shared memory."""
-    if lib.sedef_fill_smem_bytes(K, S_q, S_t):
-        return None
-    return torch.empty((n, 6, S_t), dtype=torch.int32, device=dev)
 
 
 def _ptr(t) -> int | None:
@@ -603,16 +595,17 @@ def wavefront_fill(qseq: torch.Tensor, tgt: torch.Tensor, match: int = 5,
         return p
     plan = plan or fill_plan_on(dev, S_q, S_t, B)
     lib = _kernels()
-    args = (qseq.data_ptr(), tgt.data_ptr(), p.data_ptr(), B, S_q, S_t,
-            match, mis, gapo, gape)
+    codes = (qseq.data_ptr(), tgt.data_ptr(), p.data_ptr())
+    score = (match, mis, gapo, gape)
     if plan.org == "warp":
-        _launch(wavefront_fill, dev, lib.sedef_fill_warp, *args,
-                plan.per_block)
+        _launch(wavefront_fill, dev, lib.sedef_fill_warp, *codes, B, S_q,
+                S_t, *score, plan.per_block)
     elif plan.org == "owned":
-        _launch(wavefront_fill, dev, lib.sedef_fill_owned, *args, plan.N)
+        _launch(wavefront_fill, dev, lib.sedef_fill_owned, *codes, B, S_q,
+                S_t, *score, plan.N)
     else:
-        _launch(wavefront_fill, dev, lib.sedef_fill_cluster, *args,
-                *plan.tile)
+        _launch(wavefront_fill, dev, lib.sedef_fill_cluster, *codes, B, 1,
+                S_q, S_t, *score, 0, *plan.tile)
     return p
 
 
@@ -686,13 +679,22 @@ def wavefront_fill_variant(variant: str, qseq: torch.Tensor,
 
 def wavefront_fill_streamed(qseq: torch.Tensor, tgt: torch.Tensor, K: int,
                             match: int = 5, mis: int = -4, gapo: int = 40,
-                            gape: int = 1) -> torch.Tensor:
+                            gape: int = 1, *,
+                            plan: "StreamPlan | None" = None
+                            ) -> torch.Tensor:
     """Direction rows (B // K, K * S_q + S_t - 1, S_t) uint8 of B // K
     streams of K problems (problem k of stream s at batch index s * K + k).
 
-    On a CUDA tensor this launches the streamed fill of
-    ``csrc/wavefront_fill.cu`` or raises; on a CPU tensor it is
-    ``wavefront_fill_streamed_torch``."""
+    On a CUDA tensor this launches one hand-written kernel on the current
+    stream (no synchronisation) or raises, under ``plan`` or the card's
+    ``stream_plan_on``: "parallel", every problem at once under the direct
+    fill's owned-lane kernel (``csrc/fill_owned.cuh``) or cluster fill
+    (``csrc/tile_fill_cluster.cu``), written into its stream's rows; or,
+    forced, "chain", the cluster fill over each stream's K problems in
+    turn.  On a
+    CPU tensor it is ``wavefront_fill_streamed_torch``.  The kernels write
+    only each row's band lanes (``stream_band``); the rest of ``p`` is
+    undefined."""
     dev = _check_codes(qseq, tgt, K)
     if dev.type == "cpu":
         return wavefront_fill_streamed_torch(qseq, tgt, K, match, mis, gapo,
@@ -704,12 +706,12 @@ def wavefront_fill_streamed(qseq: torch.Tensor, tgt: torch.Tensor, K: int,
                     device=dev)
     if n == 0:
         return p
-    lib = _kernels()
-    scratch = _scratch(lib, K, S_q, S_t, n, dev)
-    _launch(wavefront_fill_streamed, dev, lib.sedef_fill_streamed,
-            qseq.data_ptr(), tgt.data_ptr(), p.data_ptr(), _ptr(scratch), n,
-            K, S_q, S_t, match, mis, gapo, gape,
-            _threads(n, min(K * S_q, S_t)))
+    plan = plan or stream_plan_on(dev, S_q, S_t, n, K)
+    f = plan.fill
+    _launch(wavefront_fill_streamed, dev, _kernels().sedef_fill_streamed,
+            qseq.data_ptr(), tgt.data_ptr(), p.data_ptr(), n, K, S_q, S_t,
+            match, mis, gapo, gape, _STREAM_KERNELS[plan.org, f.org], f.C,
+            f.W, f.lanes, f.N, f.ring)
     return p
 
 
@@ -811,7 +813,8 @@ def tile_cluster_occupancy(plan: TilePlan, n_streams: int, mode: int,
     """Clusters of ``plan``'s shape the card holds at once
     (``cudaOccupancyMaxActiveClusters``); 0 when the card refuses the
     shape.  ``mode`` picks the kernel: 0 (False) the checkpoint pass, 1
-    (True) the refill, 2 the direct fill."""
+    (True) the refill, 2 the direct fill (and a chain of a stream's
+    problems), 3 one of a stream's problems filled beside the others."""
     key = (dev.index, plan, int(mode))
     if key not in _OCCUPANCY:
         out = ctypes.c_int(0)
@@ -986,6 +989,86 @@ def fill_plan_on(dev: torch.device, S_q: int, S_t: int, B: int) -> FillPlan:
     while (plan.C > least
            and tile_cluster_occupancy(plan.tile, B, 2, dev) < B):
         plan = fill_plan(S_q, S_t, B, sms, C=plan.C // 2)
+    return plan
+
+
+# The streamed fill's organisations.  "parallel": each of the n_streams * K
+# problems under the kernel ``fill_plan`` gives a direct fill of them all
+# (one block of owned lanes, or a cluster), all at once, each written at
+# stream row k * S_q of its stream and storing only its own band bytes.
+# "chain": the cluster fill with one stream a cluster, its K problems one
+# after the other in the cluster's lanes (the TPU kernel's order of work).
+# The plan takes "parallel"; "chain" is only ever forced.
+STREAM_ORGS = ("parallel", "chain")
+# sedef_fill_streamed's ``org`` argument, by (organisation, kernel)
+_STREAM_KERNELS = {("parallel", "owned"): 0, ("parallel", "cluster"): 1,
+                   ("chain", "cluster"): 2}
+
+
+class StreamPlan(NamedTuple):
+    """How one launch of the streamed fill is laid over the card: the
+    organisation ``org`` (one of STREAM_ORGS) and the plan ``fill`` of its
+    kernel: for "parallel" that of one problem in a direct fill of all
+    n_streams * K ("owned" or "cluster"), for "chain" the cluster fill's
+    plan of one stream a cluster."""
+    org: str
+    fill: FillPlan
+
+
+def stream_plan(S_q: int, S_t: int, n_streams: int, K: int, sms: int, *,
+                org: str | None = None, kernel: str | None = None,
+                C: int | None = None, lanes: int | None = None,
+                N: int | None = None) -> StreamPlan:
+    """The plan of a streamed fill of ``n_streams`` streams of ``K``
+    problems of class (S_q, S_t) on a card of ``sms`` SMs.
+
+    "parallel" unless ``org`` forces "chain".  "parallel" takes
+    ``fill_plan(S_q, S_t, n_streams * K, sms)``'s kernel, and where that
+    is the warp fill (S_t <= 128, a layout no streamed class has) owned
+    lanes, or the cluster fill for an S_t owned lanes do not take.
+    "chain" takes the cluster fill under ``fill_plan(S_q, S_t, n_streams,
+    sms, org="cluster")``.  ``org``, ``kernel`` ("owned" or "cluster"),
+    ``C``, ``lanes`` and ``N`` force a choice (any of the last four
+    "parallel" unless ``org`` says otherwise); what the kernels do not
+    take raises ``ValueError``."""
+    if min(S_q, S_t, n_streams, K, sms) < 1:
+        raise ValueError("S_q, S_t, n_streams, K and sms must be positive")
+    org = org or "parallel"
+    if org not in STREAM_ORGS:
+        raise ValueError(f"unknown organisation {org!r}; one of "
+                         f"{', '.join(STREAM_ORGS)}")
+    if kernel not in (None, "owned", "cluster"):
+        raise ValueError(f"the streamed fill launches owned lanes or the "
+                         f"cluster fill, not {kernel!r}")
+    force = dict(C=C, lanes=lanes, N=N)
+    if org == "chain":
+        if kernel == "owned":
+            raise ValueError("a chain runs on the cluster fill")
+        return StreamPlan(org, fill_plan(S_q, S_t, n_streams, sms,
+                                         org="cluster", **force))
+    fp = fill_plan(S_q, S_t, n_streams * K, sms, org=kernel, **force)
+    if fp.org == "warp":
+        fp = fill_plan(S_q, S_t, n_streams * K, sms,
+                       org="owned" if _owned_takes(S_q, S_t) else "cluster")
+    return StreamPlan(org, fp)
+
+
+@functools.lru_cache(maxsize=4096)
+def stream_plan_on(dev: torch.device, S_q: int, S_t: int, n_streams: int,
+                   K: int) -> StreamPlan:
+    """``stream_plan`` for the card ``dev`` ("parallel"): its SM count,
+    and C halved while the card cannot hold the launch's clusters all at
+    once (as ``fill_plan_on``).  Remembered per shape."""
+    sms = _sm_count(dev)
+    plan = stream_plan(S_q, S_t, n_streams, K, sms)
+    if plan.fill.org != "cluster":
+        return plan
+    n = n_streams * K
+    least = stream_plan(S_q, S_t, n_streams, K, 1, kernel="cluster").fill.C
+    while (plan.fill.C > least
+           and tile_cluster_occupancy(plan.fill.tile, n, 3, dev) < n):
+        plan = stream_plan(S_q, S_t, n_streams, K, sms, kernel="cluster",
+                           C=plan.fill.C // 2)
     return plan
 
 

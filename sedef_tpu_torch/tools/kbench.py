@@ -12,8 +12,9 @@ bytes must equal the plain fill's on every band lane, and its CIGARs the
 NumPy reference's) and, on ``cuda``, the time and rate of one launch at
 the harness shape (L = 1024, B = 64, random codes) and at a card-filling
 batch (B = 1056, eight blocks per SM of an H100).  Then it times the
-streamed fill against the direct fill over batch size and problems per
-stream, the cluster tile fill over cluster size and rows per cluster
+streamed fill under its organisations ("parallel", "chain") against the
+direct fill over classes, batch sizes and problems per stream, the
+cluster tile fill over cluster size and rows per cluster
 barrier beside the direct fill at 4, 10 and 60 Kbp, the direct fill over
 the organisations its plan can choose (``--tables`` picks among
 ``streamed``, ``tiled``, ``fill``, ``walk``), and the tracebacks' walker
@@ -128,23 +129,79 @@ def _gcups(B: int, S_q: int, S_t: int, ms: float) -> float:
     return B * S_q * S_t / ms / 1e6
 
 
-def bench_streamed(device, log=print) -> None:
-    """Streamed fill (K problems per stream) against the direct fill."""
-    log("streamed against direct fill, ms per launch:")
-    log(f"{'class, problems':22s} {'direct':>9s} "
-        + " ".join(f"{'K=' + str(k):>9s}" for k in (2, 4, 8, 16)))
-    for S, B in ((1024, 64), (1024, 264), (1024, 1056), (2048, 50),
-                 (2048, 528)):
-        q, t = random_codes(B, S, S, device)
-        cells = [f"{time_launches(lambda: wf.wavefront_fill(q, t), 5):9.3f}"]
-        for K in (2, 4, 8, 16):
+# (S_q, S_t, B) of the streamed table: the first five are those of the
+# table that timed the port's first streamed kernel (K = 2 to 16); then
+# the route's wider classes at the batch sizes where the direct fill's
+# plan takes a cluster (4,096 lanes at 50 problems; 6,144 and 8,192) and
+# a class with S_q > S_t
+STREAM_SHAPES = ((1024, 1024, 64), (1024, 1024, 264), (1024, 1024, 1056),
+                 (2048, 2048, 50), (2048, 2048, 528), (4096, 4096, 50),
+                 (6144, 6144, 34), (8192, 8192, 34), (2048, 1024, 264))
+STREAM_KS = (2, 4, 8, 16)
+
+
+def stream_band_mismatches(p, want, S_q: int, S_t: int, K: int) -> int:
+    """Bytes of the stream matrices ``p`` and ``want`` that differ on band
+    lanes, a row chunk of at most 2^28 bytes at a time."""
+    bad = 0
+    step = max(1, (1 << 28) // (p.shape[0] * S_t))
+    for r0 in range(0, p.shape[1], step):
+        r1 = min(r0 + step, p.shape[1])
+        band = wf.stream_band(r0, r1, S_q, S_t, K, p.device)
+        bad += int(((p[:, r0:r1] != want[:, r0:r1]) & band).sum())
+    return bad
+
+
+def bench_streamed(device, shapes=STREAM_SHAPES, ks=STREAM_KS, log=print,
+                   timer=None) -> dict:
+    """The streamed fill over its organisations: ms per launch of the
+    direct fill of the batch and, per K that divides it, of the streamed
+    fill under "parallel" (the plan's own) and "chain" (forced), each with
+    ``stream_plan``'s choice of kernel, beside the bytes of each direction
+    matrix.  "chain"'s bytes are held against "parallel"'s on the band.
+    Returns {(S_q, S_t, B): {"direct": ms, "direct_bytes": n, K:
+    {"parallel": ms, "chain": ms, "bytes": n, "plans": {org:
+    StreamPlan}}}}; raises on a mismatch."""
+    timer = timer or time_launches
+    dev = torch.device(device)
+    sms = _sms(dev)
+    table = {}
+    log("streamed fill against the direct fill, ms per launch (p: bytes "
+        "of the direction matrix):")
+    for S_q, S_t, B in shapes:
+        q, t = random_codes(B, S_q, S_t, device)
+        row = {"direct": timer(lambda: wf.wavefront_fill(q, t), 5, 1),
+               "direct_bytes": B * (S_q + S_t - 1) * S_t}
+        cells = []
+        for K in ks:
             if B % K:
-                cells.append(f"{'-':>9s}")
                 continue
-            ms = time_launches(
-                lambda: wf.wavefront_fill_streamed(q, t, K), 5)
-            cells.append(f"{ms:9.3f}")
-        log(f"({S},{S}), {B:<12d} " + " ".join(cells))
+            n = B // K
+            plans = {org: wf.stream_plan(S_q, S_t, n, K, sms, org=org)
+                     for org in wf.STREAM_ORGS}
+            out = {org: wf.wavefront_fill_streamed(q, t, K, plan=plan)
+                   for org, plan in plans.items()}
+            bad = stream_band_mismatches(out["chain"], out["parallel"], S_q,
+                                         S_t, K)
+            if bad:
+                raise AssertionError(f"streamed ({S_q},{S_t}) B={B} K={K}: "
+                                     f"{bad} band bytes of chain differ "
+                                     f"from parallel")
+            cell = {"bytes": out["parallel"].numel(), "plans": plans}
+            del out
+            for org, plan in plans.items():
+                cell[org] = timer(lambda: wf.wavefront_fill_streamed(
+                    q, t, K, plan=plan), 5, 1)
+            row[K] = cell
+            f = plans["parallel"].fill
+            cells.append(f"K={K}: parallel ({f.org} C={f.C}) "
+                         f"{cell['parallel']:.3f}, chain "
+                         f"(C={plans['chain'].fill.C}) {cell['chain']:.3f},"
+                         f" p {cell['bytes']}")
+        table[S_q, S_t, B] = row
+        log(f"streamed ({S_q},{S_t}) B={B}: direct {row['direct']:.3f} ms, "
+            f"p {row['direct_bytes']}; " + "; ".join(cells))
+    return table
 
 
 # (S_q, S_t, B, K): B problems in streams of K (K = 1: the plain pair)

@@ -120,28 +120,69 @@ def _assert_band_equal(pa, pb, r0, S_q, S_t, K):
         assert torch.equal(pa[s][m], pb[s][m]), s
 
 
-# the last class keeps its DP state in the global scratch slab
-@pytest.mark.parametrize("S_q,S_t,K,n", [(1024, 1024, 2, 5), (128, 512, 3, 4),
-                                         (2048, 1024, 16, 2),
-                                         (2048, 10240, 2, 2)])
-def test_streamed_fill_matches_plain(dev, S_q, S_t, K, n):
+# streams of 2 to 16 problems with S_q < S_t, S_q = S_t and S_q > S_t; a
+# class wider than one block (2048, 10240); S_q = 128 under 1,024 lanes in
+# streams of 16; a width no multiple of 4 (1030) for the cluster paths
+STREAM_CASES = [(1024, 1024, 2, 5), (128, 512, 3, 4), (2048, 1024, 16, 2),
+                (2048, 10240, 2, 2), (128, 1024, 16, 2), (300, 1030, 3, 3)]
+# the card's own plan, "parallel" over owned lanes and over a cluster (C
+# from 1 to 4 here), and "chain"
+STREAM_FORCES = {"own": {}, "owned": dict(kernel="owned"),
+                 "cluster": dict(kernel="cluster"), "chain": dict(org="chain")}
+
+
+@pytest.mark.parametrize("S_q,S_t,K,n,force", [
+    pytest.param(*case, force, id=f"{case}-{name}")
+    for case in STREAM_CASES for name, force in STREAM_FORCES.items()
+    if not (name == "owned" and (case[1] % 4 or case[1] > 4096))])
+def test_streamed_fill_matches_plain(dev, S_q, S_t, K, n, force):
+    """The streamed fill under every organisation writes the plain
+    version's bytes on every band lane in one launch, and its traceback
+    gives the plain traceback's and the direct route's packed ops."""
     rng = np.random.default_rng(S_q + S_t + K)
     qs, ts, ql, tl, pairs = _batch(rng, S_q, S_t, n * K)
     q, t, qlt, tlt = _on_card(dev, qs, ts, ql, tl)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = wf.stream_plan(S_q, S_t, n, K, sms, **force) if force else None
     n0 = (wf.wavefront_fill_streamed.launches, wf.backtrack_pack.launches)
-    p_k = wf.wavefront_fill_streamed(q, t, K)
+    p_k = wf.wavefront_fill_streamed(q, t, K, plan=plan)
     _assert_band_equal(p_k, wf.wavefront_fill_streamed_torch(q, t, K), 0,
                        S_q, S_t, K)
     o_k = wf.backtrack_pack(p_k, qlt, tlt, K)
     assert torch.equal(o_k, wf.backtrack_pack_torch(p_k, qlt, tlt, K))
     assert (wf.wavefront_fill_streamed.launches,
             wf.backtrack_pack.launches) == (n0[0] + 1, n0[1] + 1)
+    assert torch.equal(o_k, wf.backtrack_pack(wf.wavefront_fill(q, t), qlt,
+                                              tlt))
     if S_t <= 1024:
         ops = o_k.cpu().numpy()
         for b, (qq, tt) in enumerate(pairs[:4]):
             p_np, _ = wf.wavefront_np(qq, tt)
             assert (wf.cigar_from_packed_ops(ops[b], len(qq), len(tt))
                     == wf.backtrack_np(p_np, len(qq), len(tt))), b
+
+
+def test_stream_plan_on_and_refused_streamed_fill_raise(dev):
+    """The card's own plan is "parallel" under a kernel the card takes; a
+    plan the kernels refuse raises and counts no launch."""
+    for S_q, S_t, n, K in [(2048, 2048, 25, 2), (1024, 1024, 132, 8),
+                           (4096, 4096, 25, 2), (8192, 8192, 17, 2)]:
+        plan = wf.stream_plan_on(dev, S_q, S_t, n, K)
+        assert plan.org == "parallel"
+        if plan.fill.C > 1:
+            assert wf.tile_cluster_occupancy(plan.fill.tile, n * K, 3,
+                                             dev) >= 1
+    q = torch.zeros((4, 512), dtype=torch.int8, device=dev)
+    odd = torch.zeros((4, 2050), dtype=torch.int8, device=dev)
+    n0 = wf.wavefront_fill_streamed.launches
+    with pytest.raises(RuntimeError):   # owned lanes come in fours
+        wf.wavefront_fill_streamed(q, odd, 2, plan=wf.StreamPlan(
+            "parallel", wf.FillPlan("owned", 1, 2050, 4, 4, 0, 1)))
+    with pytest.raises(RuntimeError):   # a cluster of 32 blocks
+        wf.wavefront_fill_streamed(q, odd, 2, plan=wf.StreamPlan(
+            "chain", wf.FillPlan("cluster", 32, 68, 1, 16, 64, 1)))
+    torch.cuda.synchronize()
+    assert wf.wavefront_fill_streamed.launches == n0
 
 
 # the cluster tile fill splits a stream over C blocks: C = 1 at (256,256), 2

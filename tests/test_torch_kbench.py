@@ -292,6 +292,43 @@ def test_bench_fill_cpu_path():
     assert "warp x4 " in lines[0] and "warp x8 " in lines[0]
 
 
+def test_bench_streamed_cpu_path():
+    """``bench_streamed`` on the CPU with a counting timer: the direct fill
+    and, for every K dividing the batch, the streamed fill under both
+    organisations (the plain fill here, held chain against parallel), with
+    the bytes of each matrix; no kernel is launched."""
+    calls = []
+
+    def timer(fn, n, warm):
+        fn()
+        calls.append(n)
+        return float(len(calls))
+
+    lines = []
+    n0 = (wf.wavefront_fill.launches, wf.wavefront_fill_streamed.launches)
+    table = kbench.bench_streamed("cpu", shapes=((40, 36, 6), (24, 132, 4)),
+                                  ks=(2, 3, 4), log=lines.append,
+                                  timer=timer)
+    assert set(table[40, 36, 6]) == {"direct", "direct_bytes", 2, 3}
+    assert set(table[24, 132, 4]) == {"direct", "direct_bytes", 2, 4}
+    cell = table[40, 36, 6][3]
+    assert cell["bytes"] == 2 * (3 * 40 + 36 - 1) * 36
+    assert table[40, 36, 6]["direct_bytes"] == 6 * (40 + 36 - 1) * 36
+    assert cell["plans"]["parallel"] == wf.stream_plan(40, 36, 2, 3, 132)
+    assert cell["plans"]["chain"].org == "chain"
+    assert cell["parallel"] > 0 and cell["chain"] > 0
+    assert wf.stream_plan(40, 36, 2, 3, 132).org == "parallel"
+    assert len(calls) == 2 + 2 * 4
+    assert (wf.wavefront_fill.launches,
+            wf.wavefront_fill_streamed.launches) == n0
+    assert lines[1].startswith("streamed (40,36) B=6: direct ")
+    assert "K=3: parallel (owned C=1) " in lines[1]
+    assert f"chain (C=1) 5.000, p {cell['bytes']}" in lines[1]
+    assert {(1024, 1024, 64), (1024, 1024, 264), (1024, 1024, 1056),
+            (2048, 2048, 50), (2048, 2048, 528),
+            (8192, 8192, 34)} <= set(kbench.STREAM_SHAPES)
+
+
 def test_walk_plans_grid():
     plans = kbench.walk_plans(4, 132)
     assert list(plans) == ["thread", "R=32", "R=32 prefetch", "R=64",

@@ -62,10 +62,12 @@ def _assert_prefix(got, want):
     assert (want[:, nb:] == 0xFF).all()
 
 
-@pytest.mark.parametrize("S_q,S_t,K", [(128, 128, 2), (128, 256, 2)])
+@pytest.mark.parametrize("S_q,S_t,K", [(128, 128, 2), (128, 256, 2),
+                                       (256, 128, 2), (128, 128, 3)])
 def test_streamed_ops_match_pallas_interpret(S_q, S_t, K):
     """Streamed fill + traceback: byte-identical packed ops against the
-    reference package's streamed Pallas kernel (8 streams of K)."""
+    reference package's streamed Pallas kernel (8 streams of K; classes
+    with S_q < S_t, S_q = S_t and S_q > S_t, and streams of 3)."""
     rng = np.random.default_rng(S_q + S_t + K)
     qs, ts, ql, tl, _ = _batch(rng, S_q, S_t, 8 * K)
     p = wf.wavefront_fill_streamed(torch.from_numpy(qs), torch.from_numpy(ts),
