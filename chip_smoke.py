@@ -42,6 +42,18 @@ line):
    variant kernel by the calibration path; a ``[main]`` line per run
    gives, per route and size class, the launch groups and the median and
    the most problems of a group;
+5b. the other entry points, each checked and its kernel launches counted
+   from 0 (``[entry]`` lines): (a) the multi-process driver
+   ``run_pipeline_distributed`` on the e2e genome as two processes on the
+   one card (gloo over localhost, each aligner calibrated by ``devcal``
+   at the fixed bulk floor of the main path's second run), aligned.bed
+   and final.bed equal to the host route's; (b) ``MeshAligner``
+   over the card listed twice on a mix of classes from 128 to 4,096 lanes,
+   a batch of fewer than two problems a device and two problems wider
+   than ``GIANT_S_T``, CIGARs equal to the single card aligner's; (c)
+   ``multichip_step`` in an NCCL world of one, band bytes equal to the
+   plain fill's and total == B; (d) ``classify_pair`` with every gap DP on
+   the card, the CPU's class for each of 15 seeded pairs;
 6. with ``--spread N``: N timed runs per route and genome, routes
    alternated; with ``--profile``: a ``torch.profiler`` trace of each card
    run (device busy time, kernels, copies); with ``--main-only``: phases 1,
@@ -180,16 +192,17 @@ def consumed_rows(packed) -> int:
     return sum(int((((o >> sh) & 3) != 3).sum()) for sh in (0, 2, 4, 6))
 
 
+def smi(query, *fmt) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}",
+         "--format=csv,noheader" + "".join(fmt)], capture_output=True,
+        text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    def smi(query, *fmt):
-        return subprocess.run(
-            ["nvidia-smi", f"--query-gpu={query}",
-             "--format=csv,noheader" + "".join(fmt)], capture_output=True,
-            text=True, check=True).stdout.strip().splitlines()[0]
-
     log(smi("name,power.limit"))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = float(smi("clocks.max.sm", ",nounits"))
@@ -1002,7 +1015,271 @@ def phase_main_path(genomes, tmp):
     missing = [n for n in MAIN_PATH_KERNELS if launches[n] <= 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
-    return launches
+    return launches, host
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: the other entry points
+# ---------------------------------------------------------------------------
+
+# one process of the multi-process driver, started as the CLI's
+# ``--coordinator/--num-processes/--process-id`` start it: a gloo group
+# over localhost, the aligner on the card calibrated by devcal (the bulk
+# floor fixed at the main path's LOW_FLOOR, so that the align stage reaches
+# the card whatever two calibrations measure side by side; the launch
+# counts start after the calibration's); the last stdout line is what it
+# did on the card
+DRIVER_WORKER = r"""
+import json, sys, time
+import torch
+torch.set_num_threads(1)
+from sedef_tpu_torch import devcal
+from sedef_tpu_torch.ops import wavefront as wf
+from sedef_tpu_torch.parallel.distributed import (init_distributed,
+                                                  run_pipeline_distributed)
+fa, out, port, pid, n, nbuckets, jobs, floor = sys.argv[1:9]
+init_distributed(f"localhost:{port}", int(n), int(pid), timeout_s=600)
+al = wf.WavefrontAligner(device="cuda")
+al.DEVICE_BATCH_MIN_CELLS = int(floor)
+devcal.apply(al)
+for w in wf.KERNEL_WRAPPERS:
+    w.launches = 0
+t0 = time.perf_counter()
+run_pipeline_distributed(fa, out, nbuckets=int(nbuckets), jobs=int(jobs),
+                         aligner=al, quiet=False, force=True)
+wall = time.perf_counter() - t0
+torch.distributed.destroy_process_group()
+assert "jax" not in sys.modules and not any(
+    m == "sedef_tpu" or m.startswith("sedef_tpu.") for m in sys.modules)
+print(json.dumps({
+    "pid": int(pid), "wall_s": wall, "problems": al.device_problems,
+    "cells": al.device_cells, "launch_groups": al.device_batches,
+    "floors": [al.DEVICE_BATCH_MIN, al.DEVICE_BATCH_MIN_CELLS],
+    "groups": {f"{r} ({q},{t})": len(g)
+               for (r, q, t), g in sorted(al.launch_groups.items())},
+    "launches": {w.__name__: w.launches for w in wf.KERNEL_WRAPPERS}}))
+"""
+N_PROCESSES = 2
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _require_launched(what: str, counts: dict, names) -> None:
+    missing = [n for n in names if counts.get(n, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{what} launched no {missing}")
+
+
+def _entry_driver(genomes, host, tmp):
+    """(a) ``run_pipeline_distributed`` on e2e-20M in two processes on the
+    one card: aligned.bed and final.bed equal to the host route's."""
+    fa = genomes["e2e-20M"][0]
+    out = os.path.join(tmp, "driver")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DRIVER_WORKER, fa, out, str(port), str(pid),
+         str(N_PROCESSES), "16", str(JOBS), str(LOW_FLOOR)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in range(N_PROCESSES)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for proc, (so, se) in zip(procs, outs):
+        if proc.returncode:
+            raise AssertionError(f"driver process failed ({proc.returncode})"
+                                 f":\n{se[-3000:]}")
+    for s in ("aligned", "final"):
+        with open(os.path.join(out, f"{s}.bed"), "rb") as f:
+            if f.read() != host["e2e-20M"][1][s]:
+                raise AssertionError(f"driver: {s}.bed differs from the "
+                                     f"host route")
+    reports = [json.loads(so.strip().splitlines()[-1]) for so, _ in outs]
+    launches = {n: sum(r["launches"][n] for r in reports)
+                for n in reports[0]["launches"]}
+    for r, (_, se) in zip(reports, outs):
+        floors = [ln for ln in se.splitlines() if ln.startswith("[devcal")]
+        stages = [ln.strip() for ln in se.splitlines()
+                  if ln.startswith(("[search:", "[bucket:", "[align:",
+                                    "[stats:"))]
+        log(f"[entry] driver process {r['pid']}: wall {r['wall_s']:.3f} s; "
+            f"on the card {r['problems']} problems, {r['cells']} cells, "
+            f"{r['launch_groups']} launch groups {r['groups']}; floors "
+            f"{r['floors']}; {'; '.join(floors)}; {'; '.join(stages)}")
+    log(f"[entry] driver e2e-20M, {N_PROCESSES} processes on one card "
+        f"({smi('name,power.limit')}), floor {LOW_FLOOR} cells: wall "
+        f"{wall:.3f} s with process start-up (the single-process card "
+        f"route at that floor and the host route in the [main] lines, host "
+        f"{host['e2e-20M'][0]:.3f} s); aligned.bed and final.bed = host "
+        f"route's; launches {launches}")
+    _require_launched("the driver", launches,
+                      ("wavefront_fill", "backtrack_pack"))
+
+
+def _mesh_mix(rng):
+    """Problems of every class from 128 to 4,096 lanes, and two wider than
+    GIANT_S_T."""
+    import numpy as np
+    pairs = []
+    for lo, hi, cnt in [(60, 128, 12), (129, 256, 10), (257, 512, 8),
+                        (513, 1024, 6), (1025, 2048, 4), (2049, 4096, 3),
+                        (8400, 9800, 2)]:
+        for _ in range(cnt):
+            n = int(rng.integers(lo, hi + 1))
+            q = rng.integers(0, 4, n).astype(np.int8)
+            t = q.copy()
+            mut = rng.random(n) < 0.08
+            t[mut] = rng.integers(0, 4, int(mut.sum()))
+            cut = int(rng.integers(0, max(1, n // 10)))
+            pairs.append((q, t[:n - cut] if rng.random() < 0.5 else
+                          np.concatenate([t, q[:cut]])))
+    rng.shuffle(pairs)
+    return pairs
+
+
+def _entry_mesh_aligner():
+    """(b) ``MeshAligner`` over the card listed twice: the single card
+    aligner's CIGARs, kernels 1 and 2 launched."""
+    import numpy as np
+    import torch
+
+    from sedef_tpu_torch import devcal
+    from sedef_tpu_torch.ops import wavefront as wf
+    from sedef_tpu_torch.parallel.mesh import MeshAligner
+    pairs = _mesh_mix(np.random.default_rng(11))
+    dev = torch.device("cuda", 0)
+    mesh_al = MeshAligner([dev, dev])
+    single = wf.WavefrontAligner(device="cuda")
+    devcal.apply(mesh_al)
+    devcal.apply(single)
+    _zero_counts()
+    t0 = time.perf_counter()
+    got = mesh_al.align_batch(pairs) + mesh_al.align_batch(pairs[:3])
+    t_mesh = time.perf_counter() - t0
+    counts = _read_counts()
+    t0 = time.perf_counter()
+    want = single.align_batch(pairs) + single.align_batch(pairs[:3])
+    t_single = time.perf_counter() - t0
+    if got != want:
+        bad = sum(a != b for a, b in zip(got, want))
+        raise AssertionError(f"MeshAligner: {bad} CIGARs differ from the "
+                             f"single card aligner's")
+    _require_launched("MeshAligner", counts,
+                      ("wavefront_fill", "backtrack_pack"))
+    widths = sorted({wf._pad_to_class(len(t)) for _, t in pairs})
+    log(f"[entry] MeshAligner over cuda:0 twice: {len(pairs)} + 3 problems "
+        f"(target classes {widths}), CIGARs = single aligner's; per entry "
+        f"{[al.device_problems for al in mesh_al.aligners]} problems in "
+        f"{[al.device_batches for al in mesh_al.aligners]} launch groups; "
+        f"{t_mesh * 1e3:.3f} ms vs single {t_single * 1e3:.3f} ms (one "
+        f"card either way); launches {counts}")
+
+
+def _entry_multichip_step():
+    """(c) ``multichip_step`` in a world of one on the card: the band
+    bytes of the plain fill, total == B."""
+    import torch
+    import torch.distributed as dist
+
+    from sedef_tpu_torch.ops import wavefront as wf
+    from sedef_tpu_torch.parallel.mesh import (example_inputs, make_mesh,
+                                               multichip_step)
+    S_q, S_t, B = 1024, 1024, 16
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, "cuda")
+        dev = torch.device("cuda", 0)
+        args = example_inputs(1, 1, S_q, S_t, B)
+        shard = [torch.from_numpy(a[0, 0]).to(dev) for a in args[:4]]
+        _zero_counts()
+        p, mcells, qg, total, total_passed, counts = multichip_step(
+            mesh, S_q, S_t)(*shard, args[4])
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        plain = wf.wavefront_fill_torch(shard[0][:, :S_q].to(torch.int8),
+                                        shard[1])
+        bad, _ = _band_diff(p, plain, 0, S_q, S_t, 1)
+        _require(bad, "multichip_step direction bytes")
+        if int(total) != B or int(counts.sum()) != int(total_passed):
+            raise AssertionError(f"multichip_step counters: total "
+                                 f"{int(total)}, passed {int(total_passed)},"
+                                 f" counts {counts.tolist()}")
+        _require_launched("multichip_step", launches, ("wavefront_fill",))
+        log(f"[entry] multichip_step, world of 1 ({dist.get_backend()}) on "
+            f"the card, ({S_q},{S_t},{B}): band bytes = plain fill's, total "
+            f"{int(total)}, passed {int(total_passed)}, mcells "
+            f"{mcells.tolist()[:4]}..., qg {qg.tolist()[:4]}...; launches "
+            f"{launches}")
+    finally:
+        dist.destroy_process_group()
+
+
+def _entry_classify():
+    """(d) ``classify_pair`` with a card aligner, every gap DP of the
+    harness on the card (the native region core bypassed): the CPU's
+    class for every pair, at least 4 hits of 5 at each error rate."""
+    import random
+
+    from sedef_tpu_torch.models import simulate as sim
+    from sedef_tpu_torch.ops import wavefront as wf
+    card = wf.WavefrontAligner(device="cuda")
+    card.DEVICE_BATCH_MIN = 1
+    card.DEVICE_BATCH_MIN_CELLS = 0
+    cpu = wf.WavefrontAligner(device="cpu")
+    old = os.environ.get("SEDEF_NATIVE_REGION")
+    os.environ["SEDEF_NATIVE_REGION"] = "0"
+    try:
+        _zero_counts()
+        classes = {}
+        for error in (0, 10, 25):
+            rng = random.Random(100 + error)
+            got, want = [], []
+            for _ in range(5):
+                s1, s2, _ = sim.generate_random_sd(rng, error, min_len=1200,
+                                                   max_len=6000)
+                got.append(sim.classify_pair(s1, s2, error, aligner=card))
+                want.append(sim.classify_pair(s1, s2, error, aligner=cpu))
+            if got != want or got.count("hit") < 4:
+                raise AssertionError(f"classify_pair at error {error}: card "
+                                     f"{got}, cpu {want}")
+            classes[error] = got
+        counts = _read_counts()
+    finally:
+        if old is None:
+            del os.environ["SEDEF_NATIVE_REGION"]
+        else:
+            os.environ["SEDEF_NATIVE_REGION"] = old
+    _require_launched("classify_pair", counts,
+                      ("wavefront_fill", "backtrack_pack"))
+    log(f"[entry] classify_pair on the card = on the cpu: {classes}; "
+        f"{card.device_problems} gap DPs on the card in "
+        f"{card.device_batches} launch groups; launches {counts}")
+
+
+def phase_entry_points(genomes, host, tmp):
+    """The entry points beside ``run_pipeline``, each with the kernel
+    counts set to 0 before it and read after it."""
+    t0 = time.perf_counter()
+    _entry_driver(genomes, host, tmp)
+    _entry_mesh_aligner()
+    _entry_multichip_step()
+    _entry_classify()
+    log(f"[entry] phase took {time.perf_counter() - t0:.1f}s")
 
 
 def phase_spread(genomes, tmp, n):
@@ -1071,7 +1348,9 @@ def main() -> int:
         calibration = phase_calibration()
     with tempfile.TemporaryDirectory() as tmp:
         genomes = _genomes(tmp)
-        launches = phase_main_path(genomes, tmp)
+        launches, host = phase_main_path(genomes, tmp)
+        if not args.main_only:
+            phase_entry_points(genomes, host, tmp)
         if args.spread:
             phase_spread(genomes, tmp, args.spread)
         if args.profile:

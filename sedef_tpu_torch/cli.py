@@ -1,9 +1,13 @@
 """Counterpart of ``sedef_tpu/cli.py``.
 
 Command-line interface matching the reference binary's subcommands
-(``src/main.cc:133-146``): search | align | stats | translate | pipeline.
-``--device {cuda,cpu}`` (align generate, pipeline) names the device of the
-gap-DP aligner explicitly; ``cuda`` is the default and needs a card.
+(``src/main.cc:133-146``): search | align | stats | translate | pipeline,
+plus the WGAC evaluation (``stats diff``, ``check-overlap``, ``pipeline
+-W``).  ``--device {cuda,cpu}`` (align generate, pipeline) names the device
+of the gap-DP aligner explicitly; ``cuda`` is the default and needs a card.
+``pipeline --coordinator host:port --num-processes N --process-id I`` runs
+this process's share of every stage in a gloo group of N processes (start
+the same command N times, I = 0 .. N-1; process 0 serves the address).
 
 Usage examples (mirroring README.md:124-199 of the reference):
 
@@ -12,9 +16,14 @@ Usage examples (mirroring README.md:124-199 of the reference):
     python -m sedef_tpu_torch.cli align bucket seeds.bed out_dir genome.fa -n 1000
     python -m sedef_tpu_torch.cli align generate genome.fa bucket_file -k 11
     python -m sedef_tpu_torch.cli stats generate genome.fa aligned.bed
+    python -m sedef_tpu_torch.cli stats diff genome.fa final.bed wgac.tab
+    python -m sedef_tpu_torch.cli check-overlap wgac.tab final.bed
     python -m sedef_tpu_torch.cli translate genome.fa
     python -m sedef_tpu_torch.cli pipeline genome.fa -o out_dir    # end-to-end
     python -m sedef_tpu_torch.cli pipeline genome.fa --device cpu  # no card
+    python -m sedef_tpu_torch.cli pipeline genome.fa -W wgac.tab   # + report
+    python -m sedef_tpu_torch.cli pipeline genome.fa --coordinator \
+        localhost:29500 --num-processes 2 --process-id 0           # and 1
 """
 
 from __future__ import annotations
@@ -111,6 +120,23 @@ def cmd_stats(args) -> int:
     return 0
 
 
+def cmd_diff(args) -> int:
+    from .models.evaluate import diff
+    fr = FastaReference(args.fasta)
+    res = diff(fr, open(args.bed).read().splitlines(),
+               open(args.wgac).read().splitlines())
+    print(res.report(), file=sys.stderr)
+    return 0
+
+
+def cmd_check_overlap(args) -> int:
+    from .models.evaluate import check_overlap
+    res = check_overlap(open(args.bed).read().splitlines(),
+                        open(args.wgac).read().splitlines())
+    print(res.report(), file=sys.stderr)
+    return 0
+
+
 def cmd_translate(args) -> int:
     fr = FastaReference(args.fasta)
     bins = generate_translation(fr)
@@ -122,11 +148,22 @@ def cmd_translate(args) -> int:
 
 def cmd_pipeline(args) -> int:
     cfg = _cfg_from_args(args)
-    paths = pl.run_pipeline(args.fasta, args.output, cfg,
-                            nbuckets=args.bins, jobs=args.jobs,
-                            aligner=WavefrontAligner(cfg, device=args.device),
-                            quiet=False, force=args.force)
+    aligner = WavefrontAligner(cfg, device=args.device)
+    if args.num_processes:
+        # multi-process mode: this process's share of every stage; the
+        # group was joined in main(), before anything touched the card
+        from .parallel.distributed import run_pipeline_distributed
+        paths = run_pipeline_distributed(
+            args.fasta, args.output, cfg, nbuckets=args.bins,
+            jobs=args.jobs, aligner=aligner, quiet=False, force=args.force)
+    else:
+        paths = pl.run_pipeline(args.fasta, args.output, cfg,
+                                nbuckets=args.bins, jobs=args.jobs,
+                                aligner=aligner, quiet=False,
+                                force=args.force, wgac=args.wgac)
     print(f"Final SDs available in {paths['final']}", file=sys.stderr)
+    if "wgac" in paths:
+        print(open(paths["wgac"]).read(), end="", file=sys.stderr)
     return 0
 
 
@@ -195,6 +232,17 @@ def main(argv=None) -> int:
     sg.add_argument("--max-ok-gap", type=int, dest="max_ok_gap")
     sg.add_argument("--min-split", type=int, dest="min_split")
     sg.set_defaults(fn=cmd_stats)
+    sd = ssub.add_parser("diff")
+    sd.add_argument("fasta")
+    sd.add_argument("bed")
+    sd.add_argument("wgac")
+    sd.set_defaults(fn=cmd_diff)
+
+    co = sub.add_parser("check-overlap",
+                        help="WGAC per-SD Missed/Partial/Full accounting")
+    co.add_argument("wgac")
+    co.add_argument("bed")
+    co.set_defaults(fn=cmd_check_overlap)
 
     tr = sub.add_parser("translate", help="print super-bin count")
     tr.add_argument("fasta")
@@ -212,9 +260,23 @@ def main(argv=None) -> int:
                     help="ignore stage sentinels and recompute")
     pi.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="device of the gap-DP aligner")
+    pi.add_argument("-W", "--wgac",
+                    help="WGAC tab file: run overlap + diff after final.bed"
+                         " (sedef.sh -w)")
+    pi.add_argument("--coordinator", default=None,
+                    help="multi-process mode: host:port of process 0")
+    pi.add_argument("--num-processes", type=int, default=0,
+                    help="multi-process mode: total process count")
+    pi.add_argument("--process-id", type=int, default=None,
+                    help="multi-process mode: this process's index")
     pi.set_defaults(fn=cmd_pipeline)
 
     args = p.parse_args(argv)
+    if getattr(args, "num_processes", 0):
+        # joins the group (or raises) before anything touches the card
+        from .parallel.distributed import init_distributed
+        init_distributed(args.coordinator, args.num_processes,
+                         args.process_id)
     _banner(getattr(args, "device", "cpu"))
     try:
         return args.fn(args)

@@ -714,15 +714,18 @@ def run_pipeline(fasta_path: str, out_dir: str, cfg: Config = DEFAULT,
                  nbuckets: int = 1000,
                  aligner: WavefrontAligner | None = None,
                  jobs: int = 1, quiet: bool = True,
-                 force: bool = False) -> dict[str, str]:
+                 force: bool = False,
+                 wgac: str | None = None) -> dict[str, str]:
     """Full pipeline on one host; returns paths of the stage outputs.
 
     ``quiet=False`` reports per-stage wall times and the seed-funnel
     counters on stderr (the reference's section timers + fail report,
     common.h:49-54 / search_main.cc:186-193).  Completed stages are
     resumed from their ``.ok`` sentinel files like the reference driver
-    (sedef.sh:129-240) unless ``force``.  (The reference package's
-    ``wgac`` report, ``sedef.sh -w``, is not ported yet.)"""
+    (sedef.sh:129-240) unless ``force``.  ``wgac`` (a WGAC tab file)
+    additionally runs the per-SD overlap accounting and the per-base
+    coverage diff after final.bed, like ``sedef.sh -w``
+    (sedef.sh:246-257), writing ``wgac.report``."""
     os.makedirs(out_dir, exist_ok=True)
     fr = FastaReference(fasta_path)
     bins = generate_translation(fr)
@@ -875,7 +878,7 @@ def run_pipeline(fasta_path: str, out_dir: str, cfg: Config = DEFAULT,
               quiet)
         paths = {"seeds": seeds_path, "aligned": aligned_path,
                  "final": final_path}
-        return paths
+        return _wgac_report(paths, fr, out_dir, wgac, quiet)
 
     if _done("aligned", aligned_path):
         aligned = open(aligned_path).read().splitlines()
@@ -933,5 +936,25 @@ def run_pipeline(fasta_path: str, out_dir: str, cfg: Config = DEFAULT,
         write_ok(_ok("final"), final_path)
     paths = {"seeds": seeds_path, "aligned": aligned_path,
              "final": final_path}
-    return paths
+    return _wgac_report(paths, fr, out_dir, wgac, quiet)
 
+
+def _wgac_report(paths: dict, fr: FastaReference, out_dir: str,
+                 wgac: str | None, quiet: bool) -> dict:
+    """Optional post-final WGAC accounting (sedef.sh -w,
+    sedef.sh:246-257): per-SD overlap classes + per-base coverage
+    diff written to wgac.report."""
+    if wgac:
+        from .evaluate import check_overlap, diff
+        t0 = time.time()
+        final_lines = open(paths["final"]).read().splitlines()
+        wgac_lines = open(wgac).read().splitlines()
+        ov = check_overlap(final_lines, wgac_lines)
+        dv = diff(fr, final_lines, wgac_lines)
+        report_path = os.path.join(out_dir, "wgac.report")
+        with open(report_path, "w") as f:
+            f.write(ov.report() + "\n" + dv.report() + "\n")
+        _eprn(f"[wgac]   {time.time() - t0:8.1f}s  report in "
+              f"{report_path}", quiet)
+        paths["wgac"] = report_path
+    return paths

@@ -18,6 +18,7 @@ from __future__ import annotations
 import re
 
 import numpy as np
+import torch
 
 from ..config import DEFAULT, Config
 from .dna import encode_align
@@ -95,12 +96,18 @@ def _batch_gap_cigars(qstr: str, rstr: str,
 
 
 def default_aligner() -> WavefrontAligner:
-    """The process-wide aligner on ``cuda``.  It raises where there is no
-    card: the CPU is used only when a caller asks for it by name
+    """The process-wide aligner on ``cuda``: a ``MeshAligner`` over every
+    card where the host has more than one, else the one card's
+    ``WavefrontAligner``.  It raises where there is no card: the CPU is
+    used only when a caller asks for it by name
     (``WavefrontAligner(device="cpu")``)."""
     global _default_aligner
     if _default_aligner is None:
-        _default_aligner = WavefrontAligner(device="cuda")
+        if torch.cuda.device_count() > 1:
+            from ..parallel.mesh import MeshAligner
+            _default_aligner = MeshAligner()
+        else:
+            _default_aligner = WavefrontAligner(device="cuda")
     return _default_aligner
 
 

@@ -1406,6 +1406,10 @@ def _as_device(device) -> torch.device:
                                "explicitly to run the plain PyTorch path)")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        elif dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"WavefrontAligner(device='{dev}'): the "
+                               f"host has {torch.cuda.device_count()} CUDA "
+                               f"device(s)")
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

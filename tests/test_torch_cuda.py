@@ -552,3 +552,41 @@ def test_wrappers_reject_cpu_cuda_mix(dev):
     t = torch.zeros((2, 128), dtype=torch.int8)
     with pytest.raises(ValueError):
         wf.wavefront_fill(q, t)
+
+
+def test_mesh_aligner_card_listed_twice(dev):
+    """MeshAligner over the card listed twice (two aligners, two host
+    threads, two streams) gives the single card aligner's CIGARs; both
+    entries fill a shard through kernels 1 and 2."""
+    from sedef_tpu_torch.parallel.mesh import MeshAligner
+    rng = np.random.default_rng(8)
+    pairs = []
+    for n in rng.integers(100, 1500, 41):
+        q = rng.integers(0, 4, int(n)).astype(np.int8)
+        t = q.copy()
+        mut = rng.random(int(n)) < 0.1
+        t[mut] = rng.integers(0, 4, int(mut.sum()))
+        pairs.append((q, t[:int(rng.integers(max(1, n // 2), n + 1))]))
+    mesh_al = MeshAligner([dev, dev])
+    n0 = (wf.wavefront_fill.launches, wf.backtrack_pack.launches)
+    got = mesh_al.align_batch(pairs)
+    assert wf.wavefront_fill.launches > n0[0]
+    assert wf.backtrack_pack.launches > n0[1]
+    assert all(al.device_problems > 0 for al in mesh_al.aligners)
+    single = wf.WavefrontAligner(device="cuda")
+    single.DEVICE_BATCH_MIN = 1
+    single.DEVICE_BATCH_MIN_CELLS = 0
+    assert got == single.align_batch(pairs)
+    with pytest.raises(RuntimeError):
+        MeshAligner([torch.device("cuda", torch.cuda.device_count())])
+
+
+def test_qgram_scores_on_card(dev):
+    from sedef_tpu_torch.parallel.mesh import qgram_scores
+    rng = np.random.default_rng(2)
+    a = torch.from_numpy(rng.integers(0, 4, (3, 5, 128)).astype(np.uint8))
+    b = a.clone()
+    b[:, :, ::9] = 3
+    got = qgram_scores(a.to(dev), b.to(dev))
+    assert got.device == dev and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), qgram_scores(a, b))
