@@ -54,6 +54,20 @@ line):
    ``multichip_step`` in an NCCL world of one, band bytes equal to the
    plain fill's and total == B; (d) ``classify_pair`` with every gap DP on
    the card, the CPU's class for each of 15 seeded pairs;
+5c. stage 1's device engines (``[stage1]`` lines, one JSON line of them):
+   the device index build on both strands of every e2e-20M chromosome
+   against the host scan and the stable sort; ``search_stage(jobs=1)``
+   (the whole-job path) with the roll prefilter forced on against the
+   host route on both genomes, seeds.bed byte-identical, with the
+   intervals planned and pruned in each phase, the composition rows, the
+   device ms from dispatch to collect and both stage-1 walls; one
+   ``run_pipeline(jobs=1)`` of e2e-20M under the prefilter gates
+   ``devcal.apply`` installs, beds equal to the host route's; the roll
+   engine forced on for the first 2 Mbp of one chromosome against itself
+   and its reverse complement, seeds equal to the host route's, and one
+   full batch (1,024 intervals, W 512) of each roll-length class, the
+   512 class equal to the same batch's CPU run; each device op's calls,
+   CUDA-event ms and bound;
 6. with ``--spread N``: N timed runs per route and genome, routes
    alternated; with ``--profile``: a ``torch.profiler`` trace of each card
    run (device busy time, kernels, copies); with ``--main-only``: phases 1,
@@ -1282,6 +1296,384 @@ def phase_entry_points(genomes, host, tmp):
     log(f"[entry] phase took {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5c: stage 1's device engines
+# ---------------------------------------------------------------------------
+
+# the roll engine's pair: the first ROLL_CUT_BP of one e2e-20M chromosome
+# against itself and its reverse complement (a cut of scale, only to keep
+# the phase inside the time limit: the engine launches ~60 tensor ops a
+# roll step)
+ROLL_CUT_BP = 2_000_000
+SORT_OPS = 1.0  # operations a comparison of a sort (n log2 n of them)
+SCAN_OPS = 8    # operations an element of the union-rank scan
+
+
+def _sort_ops(rows: int, width: int) -> float:
+    import math
+    return SORT_OPS * rows * width * math.log2(max(width, 2))
+
+
+def _op_costs():
+    """(ops, bytes, rows shape) of one call of each stage-1 device op,
+    from its arguments: every input read once and every output written
+    once; the row sorts at n log2 n comparisons, the scans at a few
+    operations an element (the work these inputs need)."""
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def window_sketches(q_keys, qws, qwe, lut, SQ):
+        B = qws.shape[0]
+        return (2 * _sort_ops(B, SQ) + 4 * B * SQ,
+                nb(q_keys, qws, qwe, lut) + B * SQ * 4 + B * 9, (B, SQ))
+
+    def span_intersections(r_keys, qk_all, sa, sb, SA, n_shift):
+        B, SQ = qk_all.shape
+        return (_sort_ops(B, SA) + _sort_ops(B, SQ + SA)
+                + SCAN_OPS * B * (SQ + SA),
+                nb(r_keys, qk_all, sa, sb) + B * 4, (B, SQ + SA))
+
+    def composition_ideals(r_keys, qk_all, s_all, a, b, iv_id, RW,
+                           n_shift):
+        N, SQ = a.shape[0], qk_all.shape[1]
+        return (_sort_ops(N, RW) + _sort_ops(N, SQ + RW)
+                + SCAN_OPS * N * (SQ + RW),
+                nb(r_keys, qk_all, s_all, a, b, iv_id) + N * 4,
+                (N, SQ + RW))
+
+    def device_index(code, cls, nk_valid, k, w, cap, drop=0):
+        import math
+        n = code.shape[0]
+        return (n * (3 * k + 2 * math.log2(k) + 2 * math.log2(w) + 12),
+                2 * n + 2 * cap * 4 + 4, (n,))
+
+    def roll_batch(r_keys, r_locs, nr, lut, q_keys, qws, qwe, t0, rws0,
+                   init_cnt, n_steps, re0, W, SQ, INIT_PAD, T_PAD,
+                   n_shift, init_max=None, steps_max=None):
+        # the steps the batch's rows need, a W-wide row pass of ~13
+        # element operations for each of the add and the remove a step
+        B = qws.shape[0]
+        steps = int(init_cnt.clamp(max=INIT_PAD).sum()) \
+            + 2 * int(n_steps.clamp(max=T_PAD).sum())
+        return (13 * W * steps,
+                nb(r_keys, r_locs, q_keys, qws, qwe, t0, rws0, init_cnt,
+                   n_steps, re0) + B * 9, (B, W, T_PAD))
+
+    return {"_window_sketches": window_sketches,
+            "_span_intersections": span_intersections,
+            "_composition_ideals": composition_ideals,
+            "_device_index": device_index, "_roll_batch": roll_batch}
+
+
+class OpTimer:
+    """Wraps the stage-1 device ops in their modules: per op, calls,
+    CUDA-event time around each call (its kernels as the host launched
+    them), the summed bound of the calls' work, and the largest rows
+    shape of a call."""
+
+    def __init__(self):
+        from sedef_tpu_torch.ops import prefilter, roll_engine, winnow_device
+        self.mods = {"_window_sketches": prefilter,
+                     "_span_intersections": prefilter,
+                     "_composition_ideals": prefilter,
+                     "_device_index": winnow_device,
+                     "_roll_batch": roll_engine}
+        self.costs = _op_costs()
+        self.real = {}
+        self.reset()
+
+    def reset(self):
+        self.events = {n: [] for n in self.mods}
+        self.work = {n: [0.0, 0.0] for n in self.mods}
+        self.shape = {}
+
+    def __enter__(self):
+        import torch
+        for name, mod in self.mods.items():
+            real = self.real[name] = getattr(mod, name)
+
+            def wrapped(*a, _n=name, _f=real, **kw):
+                ops, nbytes, shape = self.costs[_n](*a, **kw)
+                self.work[_n][0] += ops
+                self.work[_n][1] += nbytes
+                self.shape[_n] = max(self.shape.get(_n, shape), shape)
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = _f(*a, **kw)
+                e1.record()
+                self.events[_n].append((e0, e1))
+                return out
+
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, mod in self.mods.items():
+            setattr(mod, name, self.real[name])
+
+    def read(self) -> dict:
+        import torch
+        torch.cuda.synchronize()
+        out = {}
+        for name, evs in self.events.items():
+            if evs:
+                ops, nbytes = self.work[name]
+                out[name] = {"launches": len(evs),
+                             "ms": sum(a.elapsed_time(b) for a, b in evs),
+                             "shape": self.shape.get(name),
+                             **bound(ops, nbytes)}
+        return out
+
+
+def _stage1_index(fr, names, k, w, timer):
+    """The device index build on both strands of every chromosome against
+    the host scan and the stable sort."""
+    import numpy as np
+    import torch
+
+    from sedef_tpu_torch.ops.dna import PackedSeq
+    from sedef_tpu_torch.ops.winnow import minimizers
+    from sedef_tpu_torch.ops.winnow_device import device_index_arrays
+    seqs = [PackedSeq(n, fr.get_sequence(n), is_rc=rc)
+            for n in names for rc in (False, True)]
+    device_index_arrays(seqs[0].code[:100_000], seqs[0].cls[:100_000], k,
+                        w, device="cuda")  # first-call set-up, untimed
+    ms, host_ms = [], []
+    with timer:
+        for s in seqs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = device_index_arrays(s.code, s.cls, k, w, device="cuda")
+            ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            keys, locs = minimizers(s.code, s.cls, k, w)
+            order = np.argsort(keys, kind="stable")
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            want = (keys, locs, keys[order], locs[order])
+            if got is None or any(g.dtype != x.dtype or
+                                  not np.array_equal(g, x)
+                                  for g, x in zip(got, want)):
+                raise AssertionError(f"device index of {s.name} "
+                                     f"(rc={s.is_rc}) != host")
+    log(f"[stage1] device index: {len(seqs)} strands of "
+        f"{len(seqs[0].code)} bp = host minimizers + stable sort; ms per "
+        f"strand (host clock, with the copies): "
+        + ", ".join(f"{m:.3f}" for m in ms) + "; the host's (native scan "
+        "and numpy's stable sort): " + ", ".join(f"{m:.3f}" for m in host_ms))
+    return {"card_ms": ms, "host_ms": host_ms}
+
+
+def _stage1_prefilter(fr, bins, name, timer):
+    """search_stage(jobs=1) with the prefilter forced on against the host
+    route: seeds.bed byte-identical."""
+    from sedef_tpu_torch.config import DEFAULT
+    from sedef_tpu_torch.models import pipeline as pl
+    from sedef_tpu_torch.models import seeder
+    from sedef_tpu_torch.ops import prefilter
+    cache = pl.IndexCache(fr, DEFAULT, use_device="cuda")
+    for b in bins:
+        for c in b:
+            cache.get(c, False)
+            cache.get(c, True)
+    old = seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS
+    seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS = True, 0
+    prefilter.reset_stats()
+    try:
+        with timer:
+            t0 = time.perf_counter()
+            dev = pl.search_stage(fr, bins, DEFAULT, use_device="cuda",
+                                  jobs=1, cache=cache)
+            wall_dev = time.perf_counter() - t0
+    finally:
+        seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS = old
+    stats = dict(prefilter.STATS)
+    t0 = time.perf_counter()
+    host = pl.search_stage(fr, bins, DEFAULT, use_device=False, jobs=1,
+                           cache=cache)
+    wall_host = time.perf_counter() - t0
+    if "\n".join(dev) != "\n".join(host) or not host:
+        raise AssertionError(f"{name}: prefiltered seeds.bed != host")
+    if not stats["intervals"]:
+        raise AssertionError(f"{name}: the prefilter ran on no interval")
+    log(f"[stage1] prefilter {name} (search_stage jobs=1, forced on): "
+        f"{stats['intervals']} intervals planned, {stats['pruned_a']} "
+        f"pruned in phase A, {stats['pruned_b']} in phase B, "
+        f"{stats['rows']} composition rows, device {stats['device_ms']:.3f}"
+        f" ms from dispatch to collect (CUDA events, summed over the pairs: "
+        f"their windows overlap in the two-phase loop); stage-1 wall "
+        f"{wall_dev:.3f} s on the card against {wall_host:.3f} s on the "
+        f"host; {len(host)} seeds, seeds.bed = host route's")
+    return dict(stats, wall_card_s=wall_dev, wall_host_s=wall_host)
+
+
+def _stage1_gates(genomes, host, tmp):
+    """One run_pipeline(jobs=1) of e2e-20M on the card under the gates
+    devcal.apply installs: aligned.bed and final.bed = the host route's."""
+    from sedef_tpu_torch.config import DEFAULT
+    from sedef_tpu_torch.models import seeder
+    from sedef_tpu_torch.models.pipeline import run_pipeline
+    from sedef_tpu_torch.ops import prefilter
+    al = _aligner("card", None)
+    prefilter.reset_stats()
+    t0 = time.perf_counter()
+    paths = run_pipeline(genomes["e2e-20M"][0], os.path.join(tmp, "gates"),
+                         DEFAULT, nbuckets=16, aligner=al, jobs=1,
+                         quiet=True, force=True)
+    wall = time.perf_counter() - t0
+    for s in ("aligned", "final"):
+        if open(paths[s], "rb").read() != host["e2e-20M"][1][s]:
+            raise AssertionError(f"gates run: {s}.bed != host route's")
+    stats = dict(prefilter.STATS)
+    log(f"[stage1] calibrated gates (devcal.apply): PREFILTER_ON="
+        f"{seeder.PREFILTER_ON} PREFILTER_MIN_STEPS="
+        f"{seeder.PREFILTER_MIN_STEPS}; run_pipeline(jobs=1) e2e-20M on the "
+        f"card {wall:.3f} s, prefilter on {stats['intervals']} intervals "
+        f"({stats['pruned_a'] + stats['pruned_b']} pruned); aligned.bed and "
+        f"final.bed = host route's")
+    return {"prefilter_on": seeder.PREFILTER_ON,
+            "prefilter_min_steps": seeder.PREFILTER_MIN_STEPS,
+            "wall_s": wall, "intervals": stats["intervals"]}
+
+
+def _stage1_roll(fr, name, k, w, timer):
+    """The roll engine forced on for the first ROLL_CUT_BP of ``name``
+    against itself, forward and reverse complement: seeds = the host
+    route's; RollEngine.run on the card = on the CPU for one full batch;
+    a full batch of the 4,096 class besides."""
+    import numpy as np
+    import torch
+
+    from sedef_tpu_torch.config import DEFAULT
+    from sedef_tpu_torch.models import seeder
+    from sedef_tpu_torch.native import lib as native
+    from sedef_tpu_torch.ops import roll_engine as re_
+    from sedef_tpu_torch.ops.dna import PackedSeq
+    from sedef_tpu_torch.ops.index import MinimizerIndex
+    from sedef_tpu_torch.ops.stat_model import relaxed_jaccard_estimate
+    seq = fr.get_sequence(name)[:ROLL_CUT_BP]
+    qh = MinimizerIndex(PackedSeq(name, seq), k, w)
+    rc = MinimizerIndex(PackedSeq(name, seq, is_rc=True), k, w)
+    out = {"cut_bp": ROLL_CUT_BP, "pairs": []}
+    old = seeder.ROLL_DEVICE_MIN
+    for rh, same in ((qh, True), (rc, False)):
+        plan = native.search_plan(qh, rh, same, DEFAULT)
+        steps = plan[1][:, 4]
+        classes = {T: int(sum(re_._t_class(int(s)) == T for s in steps))
+                   for T in (*re_.T_PAD_LADDER, 0)}
+        t0 = time.perf_counter()
+        host = seeder.initial_search(qh, rh, same, DEFAULT,
+                                     use_device=False)
+        wall_host = time.perf_counter() - t0
+        seeder.ROLL_DEVICE_MIN = 0
+        try:
+            with timer:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = seeder._device_roll_results(qh, rh, plan, DEFAULT,
+                                                  "cuda")
+                wall_roll = time.perf_counter() - t0
+                dev = seeder.initial_search(qh, rh, same, DEFAULT,
+                                            use_device="cuda")
+        finally:
+            seeder.ROLL_DEVICE_MIN = old
+        if [h.to_bed() for h in dev] != [h.to_bed() for h in host]:
+            raise AssertionError(f"roll engine {name} rc={rh.seq.is_rc}: "
+                                 f"seeds != host route's")
+        rolled = int(steps[res[2]].sum())
+        pair = {"rc": rh.seq.is_rc, "intervals": len(steps),
+                "classes": classes, "ok": int(res[2].sum()),
+                "steps_rolled": rolled, "roll_wall_s": wall_roll,
+                "steps_per_s": rolled / wall_roll,
+                "host_search_wall_s": wall_host,
+                "host_planned_steps_per_s": int(steps.sum()) / wall_host}
+        out["pairs"].append(pair)
+        log(f"[stage1] roll engine {name}[:{ROLL_CUT_BP}] (cut to keep "
+            f"the phase inside the time limit) vs "
+            f"{'its reverse complement' if rh.seq.is_rc else 'itself'}: "
+            f"{len(steps)} intervals (T classes {classes}), {pair['ok']} "
+            f"rolled on the card ({rolled} steps in {wall_roll:.3f} s = "
+            f"{pair['steps_per_s']:.0f} steps/s); the host's whole native "
+            f"search {wall_host:.3f} s ({pair['host_planned_steps_per_s']:.0f}"
+            f" planned steps/s); seeds = host route's")
+
+    # one full batch of each T class, on the card against the CPU
+    win, iv = native.search_plan(qh, qh, True, DEFAULT)
+    woff = np.repeat(np.arange(len(win)), win[:, 3])
+    cols = [win[woff, 1], win[woff, 2], iv[:, 0], iv[:, 2], iv[:, 3],
+            iv[:, 4], iv[:, 5]]
+    cols = [np.asarray(c, np.int32) for c in cols]
+    # the plan's intervals repeated to fill a batch, and the 4,096 class:
+    # the same windows rolled over 4,000 steps
+    small = np.resize(np.nonzero(cols[5] <= re_.T_PAD_LADDER[0])[0],
+                      re_.DEFAULT_BATCH)
+    long_ = np.resize(np.nonzero(cols[6] + 4000 < len(seq))[0],
+                      re_.DEFAULT_BATCH)
+    cols_long = [c[long_].copy() for c in cols]
+    cols_long[5][:] = 4000
+    lut = np.array([relaxed_jaccard_estimate(s, k, DEFAULT)
+                    for s in range(161)], np.int32)
+    eng = re_.RollEngine(k, lut)
+    for label, cc, check_cpu in (("512", [c[small] for c in cols], True),
+                                 ("4096", cols_long, False)):
+        args = (len(qh.keys), len(qh.seq), *cc)
+        dk, dl = qh.device_arrays("cuda")
+        with timer:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = eng.run(dk, dk, dl, *args)
+            wall = time.perf_counter() - t0
+        msg = ""
+        if check_cpu:
+            ck, cl = qh.device_arrays("cpu")
+            cpu = eng.run(ck, ck, cl, *args)
+            if any(not np.array_equal(a, b) for a, b in zip(got, cpu)):
+                raise AssertionError("RollEngine.run on the card != CPU")
+            msg = "; (best_j, best_steps, ok) = the CPU run's"
+        rolled = int(cc[5][got[2]].sum())
+        out[f"batch_{label}"] = {"ms": wall * 1e3, "ok": int(got[2].sum()),
+                                 "steps_per_s": rolled / wall}
+        log(f"[stage1] roll engine, one batch of {len(cc[0])} x W "
+            f"{re_.DEFAULT_W} in the {label} class (the self plan's "
+            f"intervals, repeated): {wall * 1e3:.3f} ms, "
+            f"{int(got[2].sum())} ok, {rolled / wall:.0f} steps/s{msg}")
+    return out
+
+
+def phase_stage1(genomes, host, tmp):
+    """Stage 1's device engines on the main path's genomes, each held
+    against the host route (``[stage1]`` lines and one JSON line)."""
+    from sedef_tpu_torch.config import DEFAULT
+    from sedef_tpu_torch.io.fasta import FastaReference, generate_translation
+    t_phase = time.perf_counter()
+    k, w = DEFAULT.search.kmer_size, DEFAULT.search.window_size
+    timer = OpTimer()
+    summary = {}
+    fr = FastaReference(genomes["e2e-20M"][0])
+    bins = generate_translation(fr)
+    names = [c for b in bins for c in b]
+    summary["index"] = _stage1_index(fr, names, k, w, timer)
+    summary["prefilter"] = {"e2e-20M": _stage1_prefilter(fr, bins, "e2e-20M",
+                                                         timer)}
+    ops = timer.read()  # the e2e-20M whole-job run's ops
+    frm = FastaReference(genomes["mosaic-20M"][0])
+    summary["prefilter"]["mosaic-20M"] = _stage1_prefilter(
+        frm, generate_translation(frm), "mosaic-20M", OpTimer())
+    summary["gates"] = _stage1_gates(genomes, host, tmp)
+    roll_timer = OpTimer()
+    summary["roll"] = _stage1_roll(fr, names[0], k, w, roll_timer)
+    ops.update(roll_timer.read())
+    summary["ops"] = ops
+    for name, o in ops.items():
+        log(f"[stage1] op {name}: {o['launches']} calls, {o['ms']:.3f} ms "
+            f"(CUDA events), bound {o['bound_ms']:.4f} ms by "
+            f"{o['bound_by']}, largest rows shape {o['shape']}")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"[stage1] phase took {summary['phase_s']:.1f}s")
+    log("[stage1] " + json.dumps(summary, default=str))
+    return summary
+
+
 def phase_spread(genomes, tmp, n):
     """``n`` timed runs per route and genome, routes alternated (one
     untimed warm run first)."""
@@ -1351,6 +1743,7 @@ def main() -> int:
         launches, host = phase_main_path(genomes, tmp)
         if not args.main_only:
             phase_entry_points(genomes, host, tmp)
+            phase_stage1(genomes, host, tmp)
         if args.spread:
             phase_spread(genomes, tmp, args.spread)
         if args.profile:

@@ -27,8 +27,12 @@ straggler); on an H100 the measured floors sit above both, so neither
 clamp is active there.
 
 The prefilter fields are derived as the reference derives them (pure
-arithmetic on the dispatch cost) and are not installed anywhere yet: the
-port's seeder has no device prefilter to gate.
+arithmetic on the dispatch cost: on where one launch group costs at most
+``PREFILTER_LOCAL_DISPATCH_MS``, with a floor of planned roll steps linear
+in it), and ``apply`` installs them as the stage-1 seeder's gates
+(``seeder.PREFILTER_ON``, ``seeder.PREFILTER_MIN_STEPS``) for a ``cuda``
+aligner, unless ``SEDEF_PREFILTER`` or ``SEDEF_PREFILTER_MIN_STEPS`` is
+set.
 
 ``SEDEF_DISPATCH_MS`` injects a dispatch cost without measuring (tests and
 simulated backends; the reference's law and clamps then apply unchanged);
@@ -182,13 +186,16 @@ _FLOORS = (("DEVICE_BATCH_MIN_CELLS", "device_batch_min_cells",
 
 def apply(aligner, cal: Calibration | None = None) -> dict:
     """Install the calibrated batch floors on ``aligner`` (on its ``base``
-    where it is a ``CoalescingAligner``).  Returns what was set.
+    where it is a ``CoalescingAligner``), and the stage-1 prefilter gates
+    in ``models.seeder``.  Returns what was set.
 
     Only a ``cuda`` aligner is calibrated; a ``cpu`` one is left alone (and
     nothing is measured for it).  A floor is set on the instance, and only
     where the aligner still has the frozen value: what a caller set on the
     instance or patched on the class survives, as does
-    ``SEDEF_DEVICE_BATCH_MIN_CELLS``."""
+    ``SEDEF_DEVICE_BATCH_MIN_CELLS``.  The prefilter gates are the
+    process's, as in the reference; ``SEDEF_PREFILTER`` and
+    ``SEDEF_PREFILTER_MIN_STEPS`` keep theirs."""
     base = getattr(aligner, "base", aligner)
     if base.device.type != "cuda":
         return {"device": base.device.type, "calibrated": False}
@@ -197,6 +204,13 @@ def apply(aligner, cal: Calibration | None = None) -> dict:
                "dispatch_ms": round(cal.dispatch_ms, 4),
                "host_gcups": round(cal.host_gcups, 4),
                "measured": cal.measured}
+    from .models import seeder
+    if "SEDEF_PREFILTER" not in os.environ:
+        seeder.PREFILTER_ON = cal.prefilter_on
+        applied["prefilter_on"] = cal.prefilter_on
+    if "SEDEF_PREFILTER_MIN_STEPS" not in os.environ:
+        seeder.PREFILTER_MIN_STEPS = cal.prefilter_min_steps
+        applied["prefilter_min_steps"] = cal.prefilter_min_steps
     for attr, field, frozen in _FLOORS:
         if (attr == "DEVICE_BATCH_MIN_CELLS"
                 and "SEDEF_DEVICE_BATCH_MIN_CELLS" in os.environ):

@@ -23,6 +23,8 @@ import sys
 import time
 from collections import defaultdict
 
+import torch
+
 from ..config import DEFAULT, Config
 from ..io.bed import Hit, canonical_swap
 from ..io.fasta import FastaReference, generate_translation
@@ -33,6 +35,46 @@ from ..ops.wavefront import WavefrontAligner
 from . import reporter
 from .aligner import fast_align
 from .seeder import initial_search
+
+
+def auto_device(aligner=None) -> "torch.device | None":
+    """The stage-1 device (index build, roll prefilter, roll engine): the
+    card of the aligner the pipeline aligns with — ``cuda``, every card,
+    where no aligner is given or it is a ``MeshAligner`` — and None, the
+    host, for a ``cpu`` aligner or under ``SEDEF_NO_DEVICE=1``."""
+    if os.environ.get("SEDEF_NO_DEVICE", ""):
+        return None
+    if aligner is None:
+        return torch.device("cuda")
+    dev = getattr(aligner, "base", aligner).device
+    if dev.type != "cuda":
+        return None
+    return torch.device("cuda") if hasattr(aligner, "aligners") else dev
+
+
+def stage1_device(use_device) -> "torch.device | None":
+    """The device a stage-1 ``use_device`` argument names: None is
+    :func:`auto_device`'s, False the host (None), True ``cuda``, and a
+    torch device or its name itself (``cpu`` runs the engines' tensor ops
+    on the host's CPU)."""
+    if use_device is None:
+        return auto_device()
+    if use_device is False:
+        return None
+    if use_device is True:
+        return torch.device("cuda")
+    return torch.device(use_device)
+
+
+def _stage1_devices(device) -> "list[torch.device]":
+    """The devices stage-1 pair jobs rotate over: every card for ``cuda``
+    without an index, else the one device (none for the host)."""
+    if device is None:
+        return []
+    if device.type == "cuda" and device.index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 def _index_nbytes(idx: MinimizerIndex) -> int:
@@ -59,10 +101,11 @@ class IndexCache:
     running job still references stays alive through that reference."""
 
     def __init__(self, fr: FastaReference, cfg: Config,
-                 max_bytes: int | None = None):
+                 use_device=None, max_bytes: int | None = None):
         import os
         self.fr = fr
         self.cfg = cfg
+        self.device = stage1_device(use_device)
         if max_bytes is None:
             max_bytes = int(float(os.environ.get(
                 "SEDEF_INDEX_CACHE_GB", "8")) * (1 << 30))
@@ -100,10 +143,12 @@ class IndexCache:
             # built entry was evicted before we woke: build our own copy
             return MinimizerIndex(
                 PackedSeq(name, self.fr.get_sequence(name), is_rc=is_rc),
-                self.cfg.search.kmer_size, self.cfg.search.window_size)
+                self.cfg.search.kmer_size, self.cfg.search.window_size,
+                use_device=self.device)
         idx = MinimizerIndex(
             PackedSeq(name, self.fr.get_sequence(name), is_rc=is_rc),
-            self.cfg.search.kmer_size, self.cfg.search.window_size)
+            self.cfg.search.kmer_size, self.cfg.search.window_size,
+            use_device=self.device)
         with self._lock:
             self._cache[key] = idx
             self._bytes += _index_nbytes(idx)
@@ -118,13 +163,17 @@ class IndexCache:
 
 def search_job(fr: FastaReference, query_chrs: list[str],
                ref_chrs: list[str], is_rc: bool, cfg: Config = DEFAULT,
-               cache: "IndexCache | None" = None,
+               use_device=None, cache: "IndexCache | None" = None,
                report_fails: bool = False) -> list[str]:
     """One stage-1 job: all query x ref chromosome pairs of two super-bins
     on one strand (search_main.cc:122-196).  Returns seed BED lines.
-    ``report_fails`` adds diagnostic rows for gate-rejected windows."""
+    ``report_fails`` adds diagnostic rows for gate-rejected windows.  The
+    device engines run on ``use_device`` (read by :func:`stage1_device`;
+    with a ``cache`` and no ``use_device``, on the cache's device)."""
     if cache is None:
-        cache = IndexCache(fr, cfg)
+        cache = IndexCache(fr, cfg, use_device)
+    device = cache.device if use_device is None else \
+        stage1_device(use_device)
     pairs = []
     for r in ref_chrs:
         rh = cache.get(r, is_rc)
@@ -132,10 +181,22 @@ def search_job(fr: FastaReference, query_chrs: list[str],
             qh = cache.get(q, False)
             pairs.append((qh, rh, (q == r) and not is_rc))
 
+    # two-phase device overlap: plan + QUEUE the prefilter for every
+    # chromosome pair first (prepare_device_search does not block), then
+    # collect + search in order — pair k's device work runs under pair
+    # k+1's host planning and pair k-1's native search
+    on = device if device is not None else False
+    prepared = [None] * len(pairs)
+    if device is not None and not report_fails:
+        from .seeder import prepare_device_search
+        prepared = [prepare_device_search(qh, rh, sg, cfg, use_device=on)
+                    for qh, rh, sg in pairs]
+
     lines: list[str] = []
-    for qh, rh, same_genome in pairs:
+    for (qh, rh, same_genome), prep in zip(pairs, prepared):
         hits = initial_search(qh, rh, same_genome, cfg,
-                              report_fails=report_fails)
+                              report_fails=report_fails, use_device=on,
+                              prepared=prep)
         lines.extend(h.to_bed() for h in hits)
     return lines
 
@@ -169,7 +230,7 @@ def _search_stage_sharded(fr, bins, cfg, cache, todo, shard_bp, jobs,
 
     from .seeder import ShardedPairSearch
 
-    n_sched = 1  # one scheduling slot: the shards are native host work
+    n_sched = max(len(_stage1_devices(cache.device)), 1)
 
     # per-job pair descriptors + unit cost model from chromosome lengths
     # alone (no index needed: scheduling must not force index builds)
@@ -261,7 +322,8 @@ def _search_stage_sharded(fr, bins, cfg, cache, todo, shard_bp, jobs,
 
 
 def search_stage(fr: FastaReference, bins: list[list[str]],
-                 cfg: Config = DEFAULT, progress=None, jobs: int = 1,
+                 cfg: Config = DEFAULT, use_device=None,
+                 progress=None, jobs: int = 1,
                  device_assignment: list | None = None,
                  cache: "IndexCache | None" = None,
                  sink=None, shard_bp: int | None = None,
@@ -300,7 +362,7 @@ def search_stage(fr: FastaReference, bins: list[list[str]],
                 for i in range(j, nbins)
                 for is_rc in (False, True)]
     if cache is None:
-        cache = IndexCache(fr, cfg)
+        cache = IndexCache(fr, cfg, use_device)
 
     if shard_bp is None and jobs > 1:
         # default: fine-grained units whenever a pool exists — measured
@@ -319,14 +381,41 @@ def search_stage(fr: FastaReference, bins: list[list[str]],
                                          sink, device_assignment,
                                          unit_report)
 
-    # stage 1 runs on the host: every pair job is assigned slot 0
+    # multi-card stage 1: pair jobs are assigned to the cards by a
+    # longest-processing-time-first schedule on the |bin_i| x |bin_j|
+    # cost model (the align stage's complexity model applied to seeding),
+    # so -j threads drive every card concurrently with balanced load
+    # (each job's device engines run on its card, under that card's
+    # current-device context; device_arrays keeps a copy per card).  The
+    # reference's analog is one PROCESS per pair job under GNU Parallel
+    # (sedef.sh:133-140); here the card is the parallel resource.
+    device = cache.device if use_device is None else \
+        stage1_device(use_device)
+    devices = _stage1_devices(device)
+    rotate = len(devices) > 1
+    device_of = [0] * len(todo)
+    if rotate:
+        sizes = [sum(fr.length(c) for c in b) for b in bins]
+        cost = [float(sizes[t[0]]) * float(sizes[t[1]]) for t in todo]
+        loads = [0.0] * len(devices)
+        for k in sorted(range(len(todo)), key=lambda k: -cost[k]):
+            d = min(range(len(devices)), key=loads.__getitem__)
+            device_of[k] = d
+            loads[d] += cost[k]
     if device_assignment is not None:
-        device_assignment.extend([0] * len(todo))
+        device_assignment.extend(device_of)
 
     def timed(t, job_idx=0):
         t0 = time.time()
-        out = search_job(fr, bins[t[0]], bins[t[1]], t[2], cfg,
-                         cache=cache)
+        if rotate:
+            d = devices[device_of[job_idx]]
+            with torch.cuda.device(d):
+                out = search_job(fr, bins[t[0]], bins[t[1]], t[2], cfg,
+                                 d, cache)
+        else:
+            out = search_job(fr, bins[t[0]], bins[t[1]], t[2], cfg,
+                             device if device is not None else False,
+                             cache)
         return out, time.time() - t0
 
     lines: list[str] = []
@@ -769,6 +858,9 @@ def run_pipeline(fasta_path: str, out_dir: str, cfg: Config = DEFAULT,
     from .. import devcal
     _eprn(f"[devcal] {devcal.apply(aligner)}", quiet)
     device_align = getattr(aligner, "base", aligner).device.type == "cuda"
+    # stage 1's device engines run on the aligner's card (the host for a
+    # cpu aligner); devcal.apply above installed their gates
+    stage1 = auto_device(aligner) or False
     align_jobs = max(jobs, 8 if device_align else (os.cpu_count() or 2))
     if (not seeds_done and not os.environ.get("SEDEF_NO_OVERLAP", "")
             and not _done("aligned", aligned_path)):
@@ -817,7 +909,7 @@ def run_pipeline(fasta_path: str, out_dir: str, cfg: Config = DEFAULT,
 
             try:
                 n_seeds = search_stage(
-                    fr, bins, cfg, jobs=jobs,
+                    fr, bins, cfg, use_device=stage1, jobs=jobs,
                     progress=_audit, sink=_sink)
             except BaseException:
                 if tail is not None:

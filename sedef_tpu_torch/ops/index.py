@@ -25,26 +25,45 @@ from .winnow import minimizers
 
 class MinimizerIndex:
     def __init__(self, seq: PackedSeq, kmer_size: int, window_size: int,
-                 separate_lowercase: bool = True, cfg: Config = DEFAULT):
+                 separate_lowercase: bool = True, cfg: Config = DEFAULT,
+                 use_device=None):
+        """``use_device``: the device of the index build (a torch device
+        or its name), or None / False for the host.  The device builds the
+        index only where the native C++ scan is absent: that scan is the
+        fastest route wherever it exists."""
         self.seq = seq
         self.kmer_size = kmer_size
         self.window_size = window_size
-        keys, locs = minimizers(seq.code, seq.cls, kmer_size, window_size)
-        if not separate_lowercase:
-            # ALL_LOWERCASE collapses into HAS_UPPERCASE (hash.cc:81-83)
-            status = keys >> (2 * kmer_size)
-            keys = np.where(status == 1,
-                            keys - (1 << (2 * kmer_size)), keys)
-        self.keys = keys          # int64, in locus order
-        self.locs = locs          # int32, ascending
+        dev = None
         from .winnow import _native
-        if (_native is not None and _native.has("sort_minimizers")
-                and len(keys) and 2 * kmer_size + 2 <= 31):
-            self.skeys, self.slocs = _native.sort_minimizers(keys, locs)
+        native_winnow = _native is not None and _native.has("winnow")
+        if use_device and separate_lowercase and not native_winnow:
+            # full index build (winnow + posting sort) on the device
+            from .winnow_device import device_index_arrays
+            dev = device_index_arrays(seq.code, seq.cls, kmer_size,
+                                      window_size, device=use_device)
+        if dev is not None:
+            keys, locs, self.skeys, self.slocs = dev
+            self.keys = keys
+            self.locs = locs
         else:
-            order = np.argsort(keys, kind="stable")
-            self.skeys = keys[order]
-            self.slocs = locs[order]
+            keys, locs = minimizers(seq.code, seq.cls, kmer_size,
+                                    window_size, use_device=use_device)
+            if not separate_lowercase:
+                # ALL_LOWERCASE collapses into HAS_UPPERCASE (hash.cc:81-83)
+                status = keys >> (2 * kmer_size)
+                keys = np.where(status == 1,
+                                keys - (1 << (2 * kmer_size)), keys)
+            self.keys = keys          # int64, in locus order
+            self.locs = locs          # int32, ascending
+            if (_native is not None and _native.has("sort_minimizers")
+                    and len(keys) and 2 * kmer_size + 2 <= 31):
+                self.skeys, self.slocs = _native.sort_minimizers(keys,
+                                                                 locs)
+            else:
+                order = np.argsort(keys, kind="stable")
+                self.skeys = keys[order]
+                self.slocs = locs[order]
 
         # Frequency threshold (hash.cc:124-140): let ``ignore`` be the number
         # of distinct hashes we may drop; walking posting-list sizes from the
@@ -82,6 +101,25 @@ class MinimizerIndex:
 
     def __len__(self) -> int:
         return len(self.keys)
+
+    def device_arrays(self, device="cuda"):
+        """(keys int32, locs int32) on ``device``, for the roll engine and
+        the prefilter (uploaded once; packed keys fit int32 for k <= 14).
+
+        Cached per device: in the stage-1 rotation of pair jobs over the
+        cards (models/pipeline.py search_stage) each card keeps its own
+        copy."""
+        import torch
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        cache = self.__dict__.setdefault("_dev", {})
+        arrays = cache.get(dev)
+        if arrays is None:
+            arrays = cache[dev] = tuple(
+                torch.from_numpy(a.astype(np.int32)).to(dev)
+                for a in (self.keys, self.locs))
+        return arrays
 
     def posting_buckets(self) -> tuple[np.ndarray, int]:
         """16-bit radix bucket index over ``skeys`` for the native

@@ -38,8 +38,8 @@ immediate since ``m`` ranges over a subset of the window.
 That makes reference-exact winnowing embarrassingly parallel:
 ``minimizer positions = { p : key[p] <= W[p] }`` with W a plain sliding-
 window minimum.  This package computes it with the native C++ scan, or
-the NumPy version below without the native library (the reference
-package's device index build is not ported yet).
+without the native library as tensor ops on a device
+(``ops/winnow_device.py``) or with the NumPy version below.
 """
 
 from __future__ import annotations
@@ -146,9 +146,19 @@ except Exception:  # pragma: no cover
     _native = None
 
 
-def minimizers(code: np.ndarray, cls: np.ndarray, k: int, w: int
-               ) -> tuple[np.ndarray, np.ndarray]:
-    """Fastest-available dispatch: native C++ scan > numpy."""
+def minimizers(code: np.ndarray, cls: np.ndarray, k: int, w: int,
+               use_device=None) -> tuple[np.ndarray, np.ndarray]:
+    """Fastest-available dispatch: native C++ scan > device op > numpy.
+
+    ``use_device`` (a torch device or its name) runs the device op where
+    the native scan is absent; it returns to the NumPy scan only where
+    the device op does not apply (k > 14, a tiny input, capacity
+    overflow)."""
     if _native is not None and _native.has("winnow"):
         return _native.winnow(code, cls, k, w)
+    if use_device:
+        from .winnow_device import minimizers_device
+        r = minimizers_device(code, cls, k, w, use_device)
+        if r is not None:
+            return r
     return minimizers_np(code, cls, k, w)

@@ -319,7 +319,7 @@ def run_pipeline_distributed(fasta_path: str, out_dir: str,
     else:
         wipe_stage(out_dir, "seeds", [seeds_path], pid)
         t0 = time.time()
-        cache = pl.IndexCache(fr, cfg)
+        cache = pl.IndexCache(fr, cfg, pl.auto_device(aligner) or False)
         my_ids = [k for k in range(len(todo)) if k % pcount == pid]
         my_todo = [todo[k] for k in my_ids]
         job_rows: list[str] = []

@@ -590,3 +590,82 @@ def test_qgram_scores_on_card(dev):
     got = qgram_scores(a.to(dev), b.to(dev))
     assert got.device == dev and got.dtype == torch.int32
     assert torch.equal(got.cpu(), qgram_scores(a, b))
+
+
+# ---- stage 1's device engines: the card against the CPU device and the
+# host route
+
+def _stage1_pair(seed, rate=0.2, copies=5):
+    """A query and a ref sharing diverged repeat families (fail-heavy
+    intervals for the prefilter)."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n):
+        return "".join(rng.choice(list("ACGT"), n))
+
+    def mutate(s, r):
+        return "".join(rand(1) if rng.random() < r else ch for ch in s)
+
+    fams = [rand(800) for _ in range(6)]
+    q = "".join(mutate(f, rate * 0.4) + rand(200) for f in fams)
+    r = "".join(mutate(f, rate) + rand(150) for f in fams
+                for _ in range(copies))
+    return q, r
+
+
+def test_stage1_device_index_on_card(dev):
+    from sedef_tpu_torch.ops import dna, winnow_device
+    from sedef_tpu_torch.ops.winnow import minimizers_np
+    rng = np.random.default_rng(3)
+    seq = "".join(rng.choice(list("ACGTacgtN"), 300_000))
+    code, cls = dna.encode(seq)
+    keys, locs = minimizers_np(code, cls, 12, 16)
+    order = np.argsort(keys, kind="stable")
+    for seg in (1 << 22, 1 << 15):  # one segment, and ten
+        winnow_device._SEG = seg
+        try:
+            got = winnow_device.device_index_arrays(code, cls, 12, 16, dev)
+        finally:
+            winnow_device._SEG = 1 << 22
+        for g, w in zip(got, (keys, locs, keys[order], locs[order])):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+def test_stage1_prefilter_and_roll_engine_card_equal_cpu(dev):
+    from sedef_tpu_torch.config import DEFAULT
+    from sedef_tpu_torch.models import seeder
+    from sedef_tpu_torch.native import lib as native
+    from sedef_tpu_torch.ops import dna
+    from sedef_tpu_torch.ops.index import MinimizerIndex
+    q, r = _stage1_pair(1)
+    qh = MinimizerIndex(dna.PackedSeq("q", q), 12, 16)
+    rh = MinimizerIndex(dna.PackedSeq("r", r), 12, 16)
+    plan = native.search_plan(qh, rh, False, DEFAULT)
+    assert len(plan[1])
+    for fn in (seeder._device_prefilter_results,
+               seeder._device_roll_results):
+        card = fn(qh, rh, plan, DEFAULT, dev)
+        cpu = fn(qh, rh, plan, DEFAULT, "cpu")
+        for a, b in zip(card, cpu):
+            assert a.dtype == b.dtype and np.array_equal(a, b), fn
+    assert card[2].all()  # every interval of this plan rolled on the card
+
+
+def test_stage1_search_with_engines_on_card(dev, monkeypatch):
+    from sedef_tpu_torch.config import DEFAULT
+    from sedef_tpu_torch.models import seeder
+    from sedef_tpu_torch.ops import dna
+    from sedef_tpu_torch.ops.index import MinimizerIndex
+    q, r = _stage1_pair(2, rate=0.1)
+    qh = MinimizerIndex(dna.PackedSeq("q", q), 12, 16)
+    rh = MinimizerIndex(dna.PackedSeq("r", r), 12, 16)
+    host = [h.to_bed() for h in
+            seeder.initial_search(qh, rh, False, DEFAULT, use_device=False)]
+    monkeypatch.setattr(seeder, "PREFILTER_ON", True)
+    monkeypatch.setattr(seeder, "PREFILTER_MIN_STEPS", 0)
+    pre = [h.to_bed() for h in
+           seeder.initial_search(qh, rh, False, DEFAULT, use_device=dev)]
+    monkeypatch.setattr(seeder, "ROLL_DEVICE_MIN", 0)
+    roll = [h.to_bed() for h in
+            seeder.initial_search(qh, rh, False, DEFAULT, use_device=dev)]
+    assert pre == roll == host and host

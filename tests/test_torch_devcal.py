@@ -16,6 +16,7 @@ from sedef_tpu_torch.devcal import (ANCHOR_BATCH_MIN, ANCHOR_BATCH_MIN_CELLS,
                                     ANCHOR_HOST_GCUPS,
                                     ANCHOR_PREFILTER_MIN_STEPS, CARD_FLOORS,
                                     Calibration)
+from sedef_tpu_torch.models import seeder
 from sedef_tpu_torch.models.pipeline import run_pipeline
 from sedef_tpu_torch.ops import wavefront as wf
 
@@ -24,6 +25,15 @@ from test_pipeline import _make_genome
 torch.set_num_threads(1)
 
 LATENCIES = (0.05, 0.1, 1, 10, 30, 120, 10000)
+
+
+@pytest.fixture(autouse=True)
+def _keep_prefilter_gates(monkeypatch):
+    """``devcal.apply`` on a cuda aligner installs the process's stage-1
+    prefilter gates: every test here gets them back as they were."""
+    monkeypatch.setattr(seeder, "PREFILTER_ON", seeder.PREFILTER_ON)
+    monkeypatch.setattr(seeder, "PREFILTER_MIN_STEPS",
+                        seeder.PREFILTER_MIN_STEPS)
 
 
 def _cuda_aligner():
@@ -235,3 +245,55 @@ def test_run_pipeline_keeps_the_callers_floors(tmp_path, monkeypatch):
     assert seen["calls"] > 0 and seen["problems"] > 0
     assert al.device_problems == seen["problems"]
     assert (al.DEVICE_BATCH_MIN, al.DEVICE_BATCH_MIN_CELLS) == (1, 0)
+
+
+@pytest.mark.parametrize("ms", ["0.25", "1.5", "2.5", "30"])
+def test_apply_installs_the_prefilter_gates_as_the_reference(ms,
+                                                             monkeypatch):
+    """At an injected dispatch cost, a cuda aligner gets the seeder gates
+    ``sedef_tpu.devcal.apply`` installs (on at <= 2 ms; a floor of planned
+    roll steps linear in the cost), and the ``[devcal]`` dict reports
+    them."""
+    from sedef_tpu.models import seeder as ref_seeder
+    from sedef_tpu.ops.wavefront import WavefrontAligner as RefAligner
+    for attr in ("DEVICE_BATCH_MIN", "DEVICE_BATCH_MIN_CELLS"):
+        monkeypatch.setattr(RefAligner, attr, getattr(RefAligner, attr))
+    for mod in (seeder, ref_seeder):
+        monkeypatch.setattr(mod, "PREFILTER_ON", False)
+        monkeypatch.setattr(mod, "PREFILTER_MIN_STEPS", 1 << 20)
+    for name in ("SEDEF_PREFILTER", "SEDEF_PREFILTER_MIN_STEPS",
+                 "SEDEF_NO_CALIBRATE"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("SEDEF_DISPATCH_MS", ms)
+    monkeypatch.setattr(devcal, "_CAL", None)
+    monkeypatch.setattr(ref_devcal, "_CAL", None)
+    applied = devcal.apply(_cuda_aligner())
+    ref_devcal.apply()
+    assert (seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS) == (
+        ref_seeder.PREFILTER_ON, ref_seeder.PREFILTER_MIN_STEPS)
+    assert seeder.PREFILTER_ON is (float(ms) <= 2.0)
+    assert applied["prefilter_on"] == seeder.PREFILTER_ON
+    assert applied["prefilter_min_steps"] == seeder.PREFILTER_MIN_STEPS
+
+
+def test_apply_prefilter_env_overrides_and_cpu_aligner(monkeypatch):
+    """``SEDEF_PREFILTER`` / ``SEDEF_PREFILTER_MIN_STEPS`` keep the
+    seeder's values; a cpu aligner installs nothing."""
+    cal = Calibration.derive(0.25, True)
+    monkeypatch.setattr(seeder, "PREFILTER_ON", False)
+    monkeypatch.setattr(seeder, "PREFILTER_MIN_STEPS", 123)
+    monkeypatch.setenv("SEDEF_PREFILTER", "")
+    monkeypatch.setenv("SEDEF_PREFILTER_MIN_STEPS", "123")
+    applied = devcal.apply(_cuda_aligner(), cal)
+    assert "prefilter_on" not in applied
+    assert "prefilter_min_steps" not in applied
+    assert (seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS) == (False, 123)
+    monkeypatch.delenv("SEDEF_PREFILTER_MIN_STEPS")
+    assert devcal.apply(_cuda_aligner(), cal)["prefilter_min_steps"] == \
+        cal.prefilter_min_steps
+    assert seeder.PREFILTER_ON is False  # SEDEF_PREFILTER is still set
+    monkeypatch.delenv("SEDEF_PREFILTER")
+    monkeypatch.setattr(seeder, "PREFILTER_MIN_STEPS", 123)
+    assert devcal.apply(wf.WavefrontAligner(device="cpu"), cal) == {
+        "device": "cpu", "calibrated": False}
+    assert (seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS) == (False, 123)

@@ -425,9 +425,10 @@ def test_lost_peer_fails_the_collective(tmp_path):
 def test_entry_and_dryrun_multichip(tmp_path):
     """``entry("cpu")`` is the plain direct fill, equal to the reference's
     NumPy fill on every problem's band; ``dryrun_multichip(2, "cpu")``
-    runs the sharded step on a 2-rank gloo mesh and the miniature pipeline
-    with the align stage over 2 devices, in a process that imports
-    neither jax nor the reference package."""
+    runs the sharded step on a 2-rank gloo mesh, the miniature pipeline
+    with the align stage over 2 devices and the stage-1 passes (the
+    prefilter forced on, the sharded and the concurrent sharded search),
+    in a process that imports neither jax nor the reference package."""
     from sedef_tpu.ops.wavefront import wavefront_np
     from sedef_tpu_torch.entry import entry
     fn, args = entry("cpu")
@@ -447,3 +448,8 @@ def test_entry_and_dryrun_multichip(tmp_path):
                        timeout=PROC_TIMEOUT_S)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "dryrun_multichip OK: mesh 1x2 on cpu, total=4" in r.stdout
+    # part 3: the stage-1 passes on the CPU device, each equal to the host
+    assert "dryrun_multichip stage1 on cpu: prefilter pass == host" \
+        in r.stdout
+    assert "sharded units over 2 devices == host" in r.stdout
+    assert "byte-identical" in r.stdout

@@ -1,0 +1,267 @@
+"""The port's device roll engine (``sedef_tpu_torch.ops.roll_engine``)
+against the reference package's (``sedef_tpu.ops.roll_engine``, JAX on the
+CPU) and against the port's scalar ``SlidingJaccard`` roll, and the
+device-roll ``initial_search`` against the host route and ``sedef_tpu``'s
+seeds; the port runs on the CPU device with batches smaller than the
+card's 1,024.  Tolerance: exact equality, values and dtypes (integer
+jaccards and step counts; seeds byte for byte)."""
+
+import numpy as np
+import pytest
+import torch
+
+from sedef_tpu.models import seeder as ref_seeder
+from sedef_tpu.ops import dna as ref_dna
+from sedef_tpu.ops import roll_engine as ref_re
+from sedef_tpu.ops.index import MinimizerIndex as RefIndex
+from sedef_tpu_torch.config import DEFAULT
+from sedef_tpu_torch.models import seeder
+from sedef_tpu_torch.native import lib as native
+from sedef_tpu_torch.ops import dna
+from sedef_tpu_torch.ops import roll_engine as re_
+from sedef_tpu_torch.ops.index import MinimizerIndex
+from sedef_tpu_torch.ops.sliding import SlidingJaccard
+from sedef_tpu_torch.ops.stat_model import relaxed_jaccard_estimate
+
+torch.set_num_threads(1)
+
+
+def scalar_roll(qh, rh, qws, qwe, t_start, t_end, init_len, cfg):
+    """The roll of search_in_reference_interval on the query window
+    [qws, qwe) with the port's scalar sketch: (best_j, best_steps)."""
+    w = SlidingJaccard(qh.kmer_size, cfg)
+    for i in range(qws, qwe):
+        w.add_to_query(int(qh.keys[i]))
+    rlen = len(rh.seq)
+    nr = len(rh.keys)
+    rs = t_start
+    re = min(t_start + init_len, rlen)
+    rws = rh.find_minimizers(rs)
+    rwe = rws
+    while rwe < nr and rh.locs[rwe] < re:
+        w.add_to_reference(int(rh.keys[rwe]))
+        rwe += 1
+    best = (w.jaccard(), 0)
+    steps = 0
+    while rs < t_end and re < rlen:
+        if rws < nr and rh.locs[rws] < rs + 1:
+            w.remove_from_reference(int(rh.keys[rws]))
+            rws += 1
+        if rwe < nr and rh.locs[rwe] == re:
+            w.add_to_reference(int(rh.keys[rwe]))
+            rwe += 1
+        steps += 1
+        if w.jaccard() > best[0]:
+            best = (w.jaccard(), steps)
+        rs += 1
+        re += 1
+        if re == rlen:
+            break
+    return best
+
+
+def mutate(seq, rate, rng):
+    out = []
+    for ch in seq:
+        r = rng.random()
+        if r < rate * 0.7:
+            out.append(rng.choice(list("ACGT")))
+        elif r < rate * 0.85:
+            pass  # deletion
+        elif r < rate:
+            out.append(ch)
+            out.append(rng.choice(list("ACGT")))
+        else:
+            out.append(ch)
+    return "".join(out)
+
+
+def lut(k, cfg=DEFAULT):
+    return np.array([relaxed_jaccard_estimate(s, k, cfg)
+                     for s in range(161)], np.int32)
+
+
+def plan_columns(qh, rh, same=False, cfg=DEFAULT):
+    """The native speculative plan as RollEngine.run's columns."""
+    win, iv = native.search_plan(qh, rh, same, cfg)
+    woff = np.repeat(np.arange(len(win)), win[:, 3])
+    return (win[woff, 1], win[woff, 2], iv[:, 0], iv[:, 2], iv[:, 3],
+            iv[:, 4], iv[:, 5]), iv[:, 1]
+
+
+def _indexes(q, r, k=12, w=16, rc=False):
+    return (MinimizerIndex(dna.PackedSeq("q", q), k, w),
+            MinimizerIndex(dna.PackedSeq("r", r, is_rc=rc), k, w))
+
+
+def _run_both(qh, rh, cols, batch, W=re_.DEFAULT_W, SQ=re_.DEFAULT_SQ):
+    """(port's run on the CPU, reference's run) on the same plan."""
+    k = qh.kmer_size
+    eng = re_.RollEngine(k, lut(k), W=W, SQ=SQ, batch=batch)
+    qk, _ = qh.device_arrays("cpu")
+    rk, rl = rh.device_arrays("cpu")
+    got = eng.run(qk, rk, rl, len(rh.keys), len(rh.seq), *cols)
+    ref = ref_re.RollEngine(k, lut(k), W=W, SQ=SQ, batch=batch)
+    want = ref.run(qh.keys.astype(np.int32), rh.keys.astype(np.int32),
+                   rh.locs.astype(np.int32), len(rh.keys), len(rh.seq),
+                   *cols)
+    for g, w_ in zip(got, want):
+        assert g.dtype == w_.dtype
+        np.testing.assert_array_equal(g, w_)
+    return got
+
+
+needs_native = pytest.mark.skipif(not native.has("search_plan"),
+                                  reason="native library not built")
+
+
+@needs_native
+@pytest.mark.parametrize("seed,rate", [(0, 0.05), (1, 0.12), (2, 0.25)])
+def test_roll_engine_matches_reference_and_scalar(seed, rate):
+    rng = np.random.default_rng(seed)
+    base = "".join(rng.choice(list("ACGT"), 1500))
+    q = "".join(rng.choice(list("ACGT"), 400)) + base + \
+        "".join(rng.choice(list("ACGT"), 400))
+    r = "".join(rng.choice(list("ACGT"), 600)) + mutate(base, rate, rng) + \
+        "".join(rng.choice(list("ACGT"), 600))
+    qh, rh = _indexes(q, r)
+    cols, t1 = plan_columns(qh, rh)
+    assert len(t1), "no intervals planned - test setup broken"
+    bj, bs, ok = _run_both(qh, rh, cols, batch=16)
+    init_len = DEFAULT.search.min_read_size
+    for i in range(len(t1)):
+        assert ok[i]
+        assert (bj[i], bs[i]) == scalar_roll(
+            qh, rh, int(cols[0][i]), int(cols[1][i]), int(cols[2][i]),
+            int(t1[i]), init_len, DEFAULT), i
+
+
+@needs_native
+def test_roll_engine_masked_and_n():
+    """Soft-masked + N-run sequences: the HAS_N skip (ref keys never
+    added) and lowercase statuses through the packed store."""
+    rng = np.random.default_rng(9)
+    chars = list("ACGTacgt")
+    base = "".join(rng.choice(chars, 1800))
+    q = "".join(rng.choice(chars, 300)) + base + "N" * 30 + base[:400]
+    r = ("".join(rng.choice(chars, 500)) + mutate(base, 0.1, rng)
+         + "N" * 30 + mutate(base[:400], 0.1, rng))
+    qh, rh = _indexes(q, r)
+    cols, t1 = plan_columns(qh, rh)
+    assert len(t1)
+    bj, bs, ok = _run_both(qh, rh, cols, batch=8)
+    assert ok.all()
+    init_len = DEFAULT.search.min_read_size
+    for i in range(0, len(t1), max(1, len(t1) // 12)):
+        assert (bj[i], bs[i]) == scalar_roll(
+            qh, rh, int(cols[0][i]), int(cols[1][i]), int(cols[2][i]),
+            int(t1[i]), init_len, DEFAULT), i
+
+
+@needs_native
+def test_roll_batch_classes_and_overflow():
+    """``_roll_batch`` against the reference's in both T classes, with an
+    interval of the 4,096 class, one past the ladder (host: ok False), a
+    window past SQ keys and a sketch past W entries (ok False)."""
+    rng = np.random.default_rng(4)
+    base = "".join(rng.choice(list("ACGT"), 1400))
+    q = base + "".join(rng.choice(list("ACGT"), 300))
+    r = ("".join(rng.choice(list("ACGT"), 5200)) + mutate(base, 0.08, rng)
+         + "".join(rng.choice(list("ACGT"), 300)))
+    qh, rh = _indexes(q, r)
+    cols, t1 = plan_columns(qh, rh)
+    assert len(t1)
+    i0 = 0
+    rows = [list(c[i0:i0 + 1]) for c in cols]
+    # the same window rolled from the ref's start: 4,096 class, and past it
+    for n_steps in (4000, 4500):
+        t0 = 0
+        vals = [cols[0][i0], cols[1][i0], t0, rh.find_minimizers(t0), 0,
+                n_steps, DEFAULT.search.min_read_size]
+        rws0 = int(vals[3])
+        vals[4] = int(np.searchsorted(rh.locs, t0 + vals[6])) - rws0
+        for c, v in zip(rows, vals):
+            c.append(v)
+    cols2 = tuple(np.asarray(c, np.int32) for c in rows)
+    assert [re_._t_class(int(n)) for n in cols2[5]] == [
+        re_._t_class(int(cols[5][i0])), 4096, 0]
+    bj, bs, ok = _run_both(qh, rh, cols2, batch=4)
+    assert ok.tolist() == [True, True, False]
+    init_len = DEFAULT.search.min_read_size
+    assert (bj[1], bs[1]) == scalar_roll(
+        qh, rh, int(cols2[0][1]), int(cols2[1][1]), 0, 4000, init_len,
+        DEFAULT)
+    # capacities: a store of 64 entries overflows on the roll through
+    # unrelated sequence (row 1), and a window of more than SQ = 16 keys
+    _, _, ok_w = _run_both(qh, rh, cols2, batch=4, W=64, SQ=48)
+    assert not ok_w[1]
+    _, _, ok_q = _run_both(qh, rh, cols2, batch=4, W=64, SQ=16)
+    assert not ok_q.any()
+    # the batch function itself, one class, every output's dtype
+    dev = torch.device("cpu")
+    qk, _ = qh.device_arrays(dev)
+    rk, rl = rh.device_arrays(dev)
+    args = [torch.from_numpy(c[:2].copy()) for c in cols2]
+    got = re_._roll_batch(rk, rl, len(rh.keys), torch.from_numpy(lut(12)),
+                          qk, *args, W=512, SQ=160, INIT_PAD=192,
+                          T_PAD=4096, n_shift=24)
+    want = ref_re._roll_batch(
+        rh.keys.astype(np.int32), rh.locs.astype(np.int32),
+        np.int32(len(rh.keys)), np.int32(len(rh.seq)), lut(12),
+        qh.keys.astype(np.int32), *[c[:2] for c in cols2],
+        W=512, SQ=160, INIT_PAD=192, T_PAD=4096, n_shift=24)
+    for g, w_ in zip(got, want):
+        assert g.numpy().dtype == np.asarray(w_).dtype
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+
+
+def test_engine_refuses_wide_k():
+    with pytest.raises(ValueError):
+        re_.RollEngine(14, lut(12))
+
+
+def _family_pair(rng, trial):
+    def rand_seq(n, chars="ACGT"):
+        return "".join(rng.choice(list(chars), n))
+
+    fam = rand_seq(900)
+    parts_q, parts_r = [], []
+    for _ in range(8):
+        parts_q.append(rand_seq(400, "acgt"))
+        parts_q.append(mutate(fam, 0.03 * (trial % 3), rng))
+        parts_r.append(rand_seq(300, "acgt"))
+        parts_r.append(mutate(fam, 0.05 + 0.03 * (trial % 3), rng))
+    q = "".join(parts_q)
+    return q, (q if trial % 2 == 0 else "".join(parts_r))
+
+
+@needs_native
+@pytest.mark.parametrize("trial", range(4))
+def test_device_roll_search_byte_identical(trial, monkeypatch):
+    """initial_search with the roll engine forced on (on the CPU device)
+    emits the host route's seeds and sedef_tpu's, including same-genome
+    runs where hit-tree pruning sends windows back to the host roll."""
+    rng = np.random.default_rng(100 + trial)
+    q, r = _family_pair(rng, trial)
+    same = trial % 2 == 0
+    qh, rh = _indexes(q, r)
+    host = [h.to_bed() for h in
+            seeder.initial_search(qh, rh, same, DEFAULT, use_device=False)]
+    ref = [h.to_bed() for h in ref_seeder.initial_search(
+        RefIndex(ref_dna.PackedSeq("q", q), 12, 16),
+        RefIndex(ref_dna.PackedSeq("r", r), 12, 16),
+        same, ref_seeder.DEFAULT, use_device=False)]
+    monkeypatch.setattr(seeder, "ROLL_DEVICE_MIN", 1)
+    calls = []
+    real = seeder._device_roll_results
+
+    def spy(*a):
+        calls.append(a[-1])
+        return real(*a)
+
+    monkeypatch.setattr(seeder, "_device_roll_results", spy)
+    dev = [h.to_bed() for h in
+           seeder.initial_search(qh, rh, same, DEFAULT, use_device="cpu")]
+    assert calls and str(calls[0]) == "cpu"
+    assert dev == host == ref
+    assert len(host) > 0
