@@ -26,8 +26,11 @@ line):
    time); the walker under
    every walk plan, on walkers that leave on the left and the top edge and
    on a class whose width is no multiple of 16; every fill variant against
-   the plain fill on the variant harness's golden problem and at
-   (1024,1024,64), then timed there and at a card-filling batch;
+   the plain fill on the variant harness's golden problem and at every
+   shape of ``kbench.VARIANT_SHAPES`` it takes (the harness shape, a
+   card-filling batch and the main path's launch groups), then timed there
+   beside kernel 1 against three bounds (``[variants]`` lines), with the
+   SASS instructions of each row body and the registers of each kernel;
 4. the calibration path, through its entry points: the variant harness
    (``sedef_tpu_torch.tools.kbench``) and ``devcal`` (dispatch cost of one
    launch group, the host's DP rate, the derived batch floors, and the
@@ -79,7 +82,10 @@ over the card's int32 peak (SMs x 64 lanes x the SM clock ``nvidia-smi``
 reports as its maximum) and the bytes it must move over the HBM rate, for
 the work this run's inputs need: 29 operations per band cell of a fill (23
 for the checkpoint pass, which keeps no direction flags), 43 per consumed
-row of a traceback.  No single PyTorch call computes an affine-gap
+row of a traceback; the variant kernel is held to half its fill's
+operations (the 16x2 cell of ``csrc/dp_cell2.cuh`` does two lanes an
+instruction), and its line also carries the one-lane and the byte bound.
+No single PyTorch call computes an affine-gap
 direction matrix or its traceback, so ``library_ms`` is null throughout.
 
 The line before the last is the kernel summary as JSON; the last line is
@@ -393,19 +399,24 @@ class KernelPhase:
         # warm the context, the allocator and the plain versions
         _, (q, t, ql, tl) = self._inputs(128, 128, 2)
         wf.backtrack_pack_torch(wf.wavefront_fill_torch(q, t), ql, tl)
-        for shape in SHAPES:
-            self.direct(*shape)
+        def each(fn, shapes):
+            for x in shapes:
+                fn(*x)
+                torch.cuda.empty_cache()
+
+        parts = [("direct", lambda: each(self.direct, SHAPES)),
+                 ("organisations", self.organisations),
+                 ("walk edges", self.walk_edges),
+                 ("variants", self.variants),
+                 ("streamed", lambda: each(self.streamed, STREAM_SHAPES)),
+                 ("tiled", lambda: each(self.tiled, TILED_SHAPES))]
+        took = {}
+        for name, part in parts:
+            t0 = time.perf_counter()
+            part()
             torch.cuda.empty_cache()
-        self.organisations()
-        self.walk_edges()
-        self.variants()
-        torch.cuda.empty_cache()
-        for shape in STREAM_SHAPES:
-            self.streamed(*shape)
-            torch.cuda.empty_cache()
-        for shape in TILED_SHAPES:
-            self.tiled(*shape)
-            torch.cuda.empty_cache()
+            took[name] = round(time.perf_counter() - t0, 1)
+        log(f"[kernels] phase took (s): {took}")
         return self.summary
 
     def direct(self, S_q, S_t, B):
@@ -624,52 +635,88 @@ class KernelPhase:
 
     def variants(self):
         """Every fill variant against the plain fill (0 mismatching band
-        bytes) on the harness's golden problem and at (1024,1024,64), then
-        timed at (1024,1024,64) and (1024,1024,1056) beside kernel 1."""
+        bytes; the harness's own CIGAR check of each runs on the calibration
+        path) on the harness's golden problem and at every shape of
+        ``kbench.VARIANT_SHAPES`` it takes, then timed there beside kernel
+        1, each time against three bounds: 29 int32 operations a band cell
+        (one lane an instruction), the same two lanes an instruction (the
+        16x2 cell of ``csrc/dp_cell2.cuh``), and the band's direction bytes
+        over the HBM rate; and the SASS instructions of the row bodies."""
         wf, torch = self.wf, self.torch
         from sedef_tpu_torch.tools import kbench
         qseq, tgt, _, _ = kbench.golden_problem()
-        shape = SUMMARY_AT["wavefront_fill_variant"]
-        S_q, S_t, B = shape
-        _, (q, t, _, _) = self._inputs(*shape)
-        plain = _Timer()
-        cases = [(128, 128, torch.from_numpy(qseq).to(self.dev),
-                  torch.from_numpy(tgt).to(self.dev), _Timer()),
-                 (S_q, S_t, q, t, plain)]
-        for cq, ct, qq, tt, timer in cases:
-            want = timer.plain(lambda: wf.wavefront_fill_torch(qq, tt))
-            for v in wf.FILL_VARIANTS:
-                got = wf.wavefront_fill_variant(v, qq, tt)
-                torch.cuda.synchronize()
-                _require(kbench.band_mismatches(got, want, cq, ct),
-                         f"fill variant {v} ({cq},{ct})")
-                del got
-            del want
+        gq = torch.from_numpy(qseq).to(self.dev)
+        gt = torch.from_numpy(tgt).to(self.dev)
+        want = wf.wavefront_fill_torch(gq, gt)
         for v in wf.FILL_VARIANTS:
-            if not kbench.check_correct(v, self.dev):
-                raise AssertionError(f"fill variant {v}: golden check "
-                                     f"failed")
-        small = kbench.time_variants(wf.FILL_VARIANTS, self.dev, B, S_q)
-        full = kbench.time_variants(wf.FILL_VARIANTS, self.dev,
-                                    kbench.FULL_B, S_q)
-        bounds = [bound(OPS_FILL * n * S_q * S_t,
-                        n * (S_q + S_t) + n * S_q * S_t)
-                  for n in (B, kbench.FULL_B)]
-        log(f"[variants] bound ({S_q},{S_t},{B}): "
-            f"{bounds[0]['bound_ms']:.3f} ms; ({S_q},{S_t},{kbench.FULL_B})"
-            f": {bounds[1]['bound_ms']:.3f} ms, by {bounds[1]['bound_by']}")
-        for v in ("wavefront_fill",) + wf.FILL_VARIANTS:
-            log(f"[variants] {v:14s} ({S_q},{S_t},{B}): {small[v]:.3f} ms "
-                f"{B * S_q * S_t / small[v] / 1e6:.2f} GCUPS; "
-                f"({S_q},{S_t},{kbench.FULL_B}): {full[v]:.3f} ms "
-                f"{kbench.FULL_B * S_q * S_t / full[v] / 1e6:.2f} GCUPS; "
-                f"0 byte mismatches at both check shapes")
-        best = min(wf.FILL_VARIANTS, key=lambda v: small[v])
-        self._record("wavefront_fill_variant", shape, 0, small[best],
-                     plain.mean, OPS_FILL * B * S_q * S_t,
+            got = wf.wavefront_fill_variant(v, gq, gt)
+            torch.cuda.synchronize()
+            _require(kbench.band_mismatches(got, want, 128, 128),
+                     f"fill variant {v} (128,128) golden")
+        summary = SUMMARY_AT["wavefront_fill_variant"]
+        plain = _Timer()
+        taken = {}
+        for shape in kbench.VARIANT_SHAPES:
+            S_q, S_t, B = shape
+            _, (q, t, _, _) = self._inputs(S_q, S_t, B)
+            timer = plain if shape == summary else _Timer()
+            want = timer.plain(lambda: wf.wavefront_fill_torch(q, t))
+            taken[shape] = [v for v in wf.FILL_VARIANTS
+                            if kbench.variant_takes(v, S_t)]
+            for v in taken[shape]:
+                got = wf.wavefront_fill_variant(v, q, t)
+                torch.cuda.synchronize()
+                _require(kbench.band_mismatches(got, want, S_q, S_t),
+                         f"fill variant {v} ({S_q},{S_t},{B})")
+                del got
+            del want, q, t
+            torch.cuda.empty_cache()
+            left = sorted(set(wf.FILL_VARIANTS) - set(taken[shape]))
+            log(f"[variants] ({S_q},{S_t},{B}): {len(taken[shape])} "
+                f"variants, 0 band mismatches against the plain fill; not "
+                f"taken: {', '.join(left) or 'none'}")
+        table = kbench.bench_variants(wf.FILL_VARIANTS, self.dev)
+        bounds = {}
+        for (S_q, S_t, B), ms in table.items():
+            cells = B * S_q * S_t
+            nbytes = B * (S_q + S_t) + cells
+            b1 = bound(OPS_FILL * cells, nbytes)
+            b2 = bound(OPS_FILL * cells / 2, nbytes)
+            bb = nbytes / HBM_BYTES_PER_S * 1e3
+            bounds[S_q, S_t, B] = (b1, b2, bb)
+            log(f"[variants] bounds ({S_q},{S_t},{B}): one lane an "
+                f"instruction {b1['bound_ms']:.4f} ms, two lanes an "
+                f"instruction {b2['bound_ms']:.4f} ms, bytes {bb:.4f} ms")
+            for v in ("wavefront_fill",) + wf.FILL_VARIANTS:
+                if v not in ms:
+                    log(f"[variants] {v:14s} ({S_q},{S_t},{B}): not taken")
+                    continue
+                log(f"[variants] {v:14s} ({S_q},{S_t},{B}): "
+                    f"{ms[v]:.4f} ms {cells / ms[v] / 1e6:.2f} GCUPS; "
+                    f"{b1['bound_ms'] / ms[v]:.1%} of the one-lane bound, "
+                    f"{b2['bound_ms'] / ms[v]:.1%} of the two-lane bound, "
+                    f"{bb / ms[v]:.1%} of the byte bound")
+        sass = kbench.sass_counts()
+        log("[variants] sass " + json.dumps(sass))
+        small = table[summary]
+        best = min((v for v in wf.FILL_VARIANTS if v in small),
+                   key=lambda v: small[v])
+        S_q, S_t, B = summary
+        # held to the two-lanes-an-instruction bound: the 16x2 cell does a
+        # band cell's 29 operations in half the instructions
+        self._record("wavefront_fill_variant", summary, 0, small[best],
+                     plain.mean, OPS_FILL * B * S_q * S_t / 2,
                      B * (S_q + S_t) + B * S_q * S_t)
         self.summary["wavefront_fill_variant"].update(
-            variant=best, variants_ms=small, variants_ms_full_card=full)
+            variant=best,
+            bound_one_lane_ms=bounds[summary][0]["bound_ms"],
+            bound_bytes_ms=bounds[summary][2],
+            fastest={"S_q={},S_t={},B={}".format(*shape): min(
+                (v for v in wf.FILL_VARIANTS if v in ms),
+                key=lambda v: ms[v]) for shape, ms in table.items()},
+            variants_ms={"S_q={},S_t={},B={}".format(*shape): ms
+                         for shape, ms in table.items()},
+            sass=sass)
 
     def tiled(self, S_q, S_t, B):
         wf, torch = self.wf, self.torch
@@ -1737,10 +1784,14 @@ def main() -> int:
     phase_build()
     if not args.main_only:
         summary = KernelPhase().run()
+        t0 = time.perf_counter()
         calibration = phase_calibration()
+        log(f"[calibration] phase took {time.perf_counter() - t0:.1f}s")
     with tempfile.TemporaryDirectory() as tmp:
         genomes = _genomes(tmp)
+        t0 = time.perf_counter()
         launches, host = phase_main_path(genomes, tmp)
+        log(f"[main] phase took {time.perf_counter() - t0:.1f}s")
         if not args.main_only:
             phase_entry_points(genomes, host, tmp)
             phase_stage1(genomes, host, tmp)

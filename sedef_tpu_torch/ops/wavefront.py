@@ -488,6 +488,8 @@ def _kernels():
                     "sedef_walk": [vp] * 5 + [ci] * 11 + [vp],
                     "sedef_fill_variant": ([ctypes.c_char_p] + [vp] * 3
                                            + [ci] * 8 + [vp]),
+                    "sedef_fill_variant_clusters": (
+                        [ctypes.c_char_p] + [ci] * 2 + [ctypes.POINTER(ci)]),
                 }
                 for name, argtypes in sigs.items():
                     fn = getattr(lib, name)
@@ -614,13 +616,57 @@ def wavefront_fill(qseq: torch.Tensor, tgt: torch.Tensor, match: int = 5,
 # lanes with the state in shared memory (hoist, unrollN; packed: pack,
 # packuN; unroll2 with the cell's max-and-test pairs as one __vibmax_s32
 # each: vibmax); owned lanes with the state in registers (reg, regN; packed:
-# preg, pregN; without boundary selects past the ramp: bspec, bspecN)
+# preg, pregN; without boundary selects past the ramp: bspec, bspecN); the
+# two-lanes-a-word cell of csrc/dp_cell2.cuh with owned lanes (dpx2, dpx2u4)
+# and in registers (dpx2reg); the register row over a cluster of C blocks
+# (cluC, and with the word cell dpx2cluC)
 FILL_VARIANTS = ("base", "hoist", "unroll2", "unroll4", "pack", "packu2",
                  "packu4", "reg", "reg2", "reg4", "preg", "preg2", "preg4",
-                 "bspec", "bspec2", "bspec4", "vibmax")
-# lanes a thread owns in every variant but base, and its widest class
+                 "bspec", "bspec2", "bspec4", "vibmax", "dpx2", "dpx2u4",
+                 "dpx2reg", "clu2", "clu4", "dpx2clu2", "dpx2clu4")
+# lanes a thread owns in every variant but base, and the widest class of a
+# block
 VARIANT_LANES = 4
 VARIANT_MAX_S_T = 1024 * VARIANT_LANES
+# blocks a problem of the cluster variants; their classes are whole groups
+# of VARIANT_CLUSTER_GROUP lanes a block
+VARIANT_CLUSTER = {"clu2": 2, "clu4": 4, "dpx2clu2": 2, "dpx2clu4": 4}
+VARIANT_CLUSTER_GROUP = 8
+# the two-lanes-a-word cell holds every in-band value in an int16 (u, v in
+# [0, max_sc], a and b up to max_sc + gapo) and reads the match and
+# mismatch scores from an int8 table
+DPX2_LIMIT = 1 << 15
+
+
+def dpx2_scoring_fits(match: int, mis: int, gapo: int, gape: int) -> bool:
+    """Whether the two-lanes-a-word variants take the scoring (the rule of
+    ``score2_fits`` in ``csrc/dp_cell2.cuh``)."""
+    max_sc = match + 2 * (gapo + gape)
+    return (gapo >= 0 and gape >= 0 and -128 <= match <= 127
+            and -128 <= mis <= 127 and max_sc >= 0
+            and max_sc + gapo < DPX2_LIMIT)
+
+
+def _check_variant_shape(variant: str, S_t: int, match: int, mis: int,
+                         gapo: int, gape: int) -> None:
+    """``ValueError`` for a class or scoring ``variant`` does not take."""
+    if variant == "base":
+        return
+    C = VARIANT_CLUSTER.get(variant, 1)
+    unit = VARIANT_CLUSTER_GROUP * C if C > 1 else VARIANT_LANES
+    if S_t % unit or S_t > VARIANT_MAX_S_T * C:
+        raise ValueError(f"variant {variant!r} takes S_t a multiple of "
+                         f"{unit} up to {VARIANT_MAX_S_T * C}, got {S_t}")
+    if (variant.startswith(("pack", "preg"))
+            and match + 2 * (gapo + gape) > 127):
+        raise ValueError(f"variant {variant!r} packs v + 128 and x into 8 "
+                         f"bits each: match + 2 * (gapo + gape) must be at "
+                         f"most 127")
+    if (variant.startswith("dpx2")
+            and not dpx2_scoring_fits(match, mis, gapo, gape)):
+        raise ValueError(f"variant {variant!r} holds two lanes a word: "
+                         f"match + 2 * (gapo + gape) + gapo must be below "
+                         f"{DPX2_LIMIT} and match, mis in [-128, 127]")
 
 
 def pack_state_torch(x: torch.Tensor, v: torch.Tensor, q: torch.Tensor
@@ -650,22 +696,16 @@ def wavefront_fill_variant(variant: str, qseq: torch.Tensor,
     the current stream (no synchronisation) or raises; on a CPU tensor it
     is ``wavefront_fill_torch``, the plain version of every variant.  An
     unknown name, or a class or scoring a variant does not take, raises
-    ``ValueError`` on either device."""
+    ``ValueError`` on either device; a cluster variant whose cluster the
+    card cannot hold (``fill_variant_clusters`` 0) raises ``RuntimeError``
+    and launches nothing."""
     if variant not in FILL_VARIANTS:
         raise ValueError(f"unknown fill variant {variant!r}; one of "
                          f"{', '.join(FILL_VARIANTS)}")
     dev = _check_codes(qseq, tgt, 1)
     B, S_q = qseq.shape
     S_t = tgt.shape[1]
-    if variant != "base" and (S_t % VARIANT_LANES or S_t > VARIANT_MAX_S_T):
-        raise ValueError(f"variant {variant!r} takes S_t a multiple of "
-                         f"{VARIANT_LANES} up to {VARIANT_MAX_S_T}, got "
-                         f"{S_t}")
-    if (variant.startswith(("pack", "preg"))
-            and match + 2 * (gapo + gape) > 127):
-        raise ValueError(f"variant {variant!r} packs v + 128 and x into 8 "
-                         f"bits each: match + 2 * (gapo + gape) must be at "
-                         f"most 127")
+    _check_variant_shape(variant, S_t, match, mis, gapo, gape)
     if dev.type == "cpu":
         return wavefront_fill_torch(qseq, tgt, match, mis, gapo, gape)
     p = torch.empty((B, S_q + S_t - 1, S_t), dtype=torch.uint8, device=dev)
@@ -675,6 +715,24 @@ def wavefront_fill_variant(variant: str, qseq: torch.Tensor,
                 p.data_ptr(), B, S_q, S_t, match, mis, gapo, gape,
                 _threads(B, min(S_q, S_t)))
     return p
+
+
+def fill_variant_clusters(variant: str, S_q: int, S_t: int,
+                          dev: torch.device) -> int:
+    """Clusters of the cluster variant ``variant`` (or one-block chains of
+    ``dpx2reg``) at class (S_q, S_t) that the card ``dev`` holds at once
+    (``cudaOccupancyMaxActiveClusters``); 0: a launch would be refused."""
+    if variant not in VARIANT_CLUSTER and variant != "dpx2reg":
+        raise ValueError(f"{variant!r} is no chain of warps")
+    _check_variant_shape(variant, S_t, 5, -4, 40, 1)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = _kernels().sedef_fill_variant_clusters(
+            variant.encode(), S_q, S_t, ctypes.byref(out))
+    if rc:
+        raise RuntimeError(f"cluster occupancy query failed: CUDA error "
+                           f"{rc}")
+    return out.value
 
 
 def wavefront_fill_streamed(qseq: torch.Tensor, tgt: torch.Tensor, K: int,

@@ -10,15 +10,22 @@ For every variant (default: all of ``FILL_VARIANTS``) it prints
 problem: class 128, 8 problems, lengths 60..127; the variant's direction
 bytes must equal the plain fill's on every band lane, and its CIGARs the
 NumPy reference's) and, on ``cuda``, the time and rate of one launch at
-the harness shape (L = 1024, B = 64, random codes) and at a card-filling
-batch (B = 1056, eight blocks per SM of an H100).  Then it times the
+``VARIANT_SHAPES`` (random codes): the harness shape (L = 1024, B = 64), a
+card-filling batch (B = 1056, eight blocks per SM of an H100) and the main
+path's launch groups ((128,128,32), (1024,1024,4), (2048,2048,2)); a
+variant that does not take a shape says so.  A line per variant with a
+SASS probe gives the instructions of its row body and the registers of
+its kernel (``sass_counts``: ``cuobjdump`` on the built library).  Then it
+times the
 streamed fill under its organisations ("parallel", "chain") against the
 direct fill over classes, batch sizes and problems per stream, the
 cluster tile fill over cluster size and rows per cluster
 barrier beside the direct fill at 4, 10 and 60 Kbp, the direct fill over
 the organisations its plan can choose (``--tables`` picks among
-``streamed``, ``tiled``, ``fill``, ``walk``), and the tracebacks' walker
-(one thread per walker against a warp on a prefetched window).  With
+``streamed``, ``tiled``, ``fill``, ``walk``, ``rows``), the tracebacks'
+walker (one thread per walker against a warp on a prefetched window), and
+the time a row of one problem takes at widths from one warp to 4,096 lanes
+(``rows``).  With
 ``--device cpu`` it runs the correctness half on the plain versions and
 prints no times.
 
@@ -44,6 +51,12 @@ from ..ops.dna import WILDCARD
 HARNESS_L = 1024
 HARNESS_B = 64
 FULL_B = 1056  # 8 blocks on each of an H100's 132 SMs
+# (S_q, S_t, B) at which the variants are timed: the harness shape, the
+# full card, and the main path's launch groups (the median class-128 group
+# of e2e-20M; the few problems a group of the wide classes)
+VARIANT_SHAPES = ((HARNESS_L, HARNESS_L, HARNESS_B),
+                  (HARNESS_L, HARNESS_L, FULL_B), (128, 128, 32),
+                  (1024, 1024, 4), (2048, 2048, 2))
 
 
 def golden_problem(S: int = 128, B: int = 8, seed: int = 3):
@@ -114,14 +127,133 @@ def random_codes(B: int, S_q: int, S_t: int, device, seed: int = 0):
     return q.to(device), t.to(device)
 
 
-def time_variants(variants, device, B: int, L: int = HARNESS_L
-                  ) -> dict[str, float]:
-    """ms per launch of each variant (and of ``wavefront_fill`` under
-    ``"wavefront_fill"``) on one random batch of B problems of class L."""
-    q, t = random_codes(B, L, L, device)
+def variant_takes(variant: str, S_t: int) -> bool:
+    """Whether ``variant`` takes class width S_t (default scoring)."""
+    try:
+        wf._check_variant_shape(variant, S_t, 5, -4, 40, 1)
+    except ValueError:
+        return False
+    return True
+
+
+def time_variants(variants, device, B: int, L: int = HARNESS_L,
+                  S_t: int | None = None) -> dict[str, float]:
+    """ms per launch of each variant that takes the class (and of
+    ``wavefront_fill`` under ``"wavefront_fill"``) on one random batch of
+    B problems of class (L, S_t or L); a variant that does not take it is
+    left out."""
+    S_t = S_t or L
+    q, t = random_codes(B, L, S_t, device)
     out = {"wavefront_fill": time_launches(lambda: wf.wavefront_fill(q, t))}
     for v in variants:
-        out[v] = time_launches(lambda: wf.wavefront_fill_variant(v, q, t))
+        if variant_takes(v, S_t):
+            out[v] = time_launches(
+                lambda: wf.wavefront_fill_variant(v, q, t))
+    return out
+
+
+def bench_variants(variants, device, shapes=VARIANT_SHAPES) -> dict:
+    """{(S_q, S_t, B): ``time_variants`` at that shape}."""
+    return {(S_q, S_t, B): time_variants(variants, device, B, S_q, S_t)
+            for S_q, S_t, B in shapes}
+
+
+# the row bodies whose instructions ``sass_counts`` reads: probe kernel of
+# csrc/wavefront_fill_variants.cu -> the variants that run that row
+SASS_PROBES = {"sedef_probe_owned": ("hoist", "unroll2", "unroll4"),
+               "sedef_probe_reg": ("reg", "reg2", "reg4"),
+               "sedef_probe_owned2": ("dpx2", "dpx2u4"),
+               "sedef_probe_chain1": ("clu2", "clu4"),
+               "sedef_probe_chain2": ("dpx2reg", "dpx2clu2", "dpx2clu4")}
+# the kernel each variant launches, as a fragment of its mangled name
+SASS_KERNELS = {"hoist": "10fill_ownedILb0ELi1ELb0EE",
+                "unroll2": "10fill_ownedILb0ELi2ELb0EE",
+                "unroll4": "10fill_ownedILb0ELi4ELb0EE",
+                "vibmax": "10fill_ownedILb0ELi2ELb1EE",
+                "reg": "8fill_regILb0ELb0ELi1EE",
+                "reg2": "8fill_regILb0ELb0ELi2EE",
+                "reg4": "8fill_regILb0ELb0ELi4EE",
+                "dpx2": "9fill_dpx2ILi2EE", "dpx2u4": "9fill_dpx2ILi4EE",
+                "dpx2reg": "10fill_chainILb1ELi4ELi4EE",
+                "clu2": "10fill_chainILb0ELi32ELi4EE",
+                "clu4": "10fill_chainILb0ELi32ELi4EE",
+                "dpx2clu2": "10fill_chainILb1ELi32ELi2EE",
+                "dpx2clu4": "10fill_chainILb1ELi32ELi2EE"}
+
+
+def _sass_functions(text: str) -> dict[str, list[tuple[int, str]]]:
+    """{function: [(address, instruction)]} of the ELF section of
+    ``cuobjdump -sass`` output that holds the variant kernels."""
+    import re
+    sections = re.split(r"\n\s*Fatbin elf code:", text)
+    section = next((sec for sec in sections if "sedef_probe_owned2" in sec),
+                   "")
+    funcs: dict[str, list[tuple[int, str]]] = {}
+    name = None
+    for line in section.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and name is not None:
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def _loop_instructions(code: list[tuple[int, str]]) -> int:
+    """Instructions (NOPs left out) of the largest loop of a function: the
+    span of its widest backward branch."""
+    import re
+    best = 0
+    for addr, ins in code:
+        m = re.search(r"\bBRA\S*\s+(?:\S+\s+)?(?:`?\(?)0x([0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < addr:
+            lo = int(m.group(1), 16)
+            n = sum(1 for a, i in code if lo <= a <= addr
+                    and not i.split()[0].startswith("NOP"))
+            best = max(best, n)
+    return best
+
+
+def sass_counts(lib=None) -> dict[str, dict]:
+    """Per variant with a probe: the instructions of its row body (the
+    probe's loop: the row of four lanes and the loop's own few), a cell's
+    share of them, and the registers a thread of the kernel it launches
+    (``cuobjdump -sass`` / ``-res-usage`` on the built kernel library).
+    Needs the CUDA toolkit; {} where ``cuobjdump`` is missing."""
+    import os
+    import re
+    import shutil
+    import subprocess
+
+    from ..native.build import KERNELS_SO, nvcc_path
+    try:
+        tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    except FileNotFoundError:
+        tool = shutil.which("cuobjdump")
+    if not tool or not os.path.exists(tool):
+        return {}
+    lib = str(lib or KERNELS_SO)
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                         text=True, check=True).stdout
+    regs = {}
+    for sec in re.split(r"\n\s*Fatbin elf code:", res):
+        if "sedef_probe_owned2" not in sec:
+            continue
+        for m in re.finditer(r"Function (\S+):\s*REG:(\d+)", sec):
+            regs[m.group(1)] = int(m.group(2))
+    funcs = _sass_functions(sass)
+    out = {}
+    for probe, variants in SASS_PROBES.items():
+        n = _loop_instructions(funcs.get(probe, []))
+        for v in variants:
+            kern = next((f for f in regs if SASS_KERNELS[v] in f), None)
+            out[v] = {"row": n, "per_cell": n / wf.VARIANT_LANES,
+                      "regs": regs.get(kern)}
     return out
 
 
@@ -478,8 +610,42 @@ def bench_walk(device, shapes=WALK_SHAPES, log=print, timer=None) -> dict:
     return table
 
 
+# the row table: one problem with a query of ROW_S_Q codes (many rows) at
+# widths from one warp's lanes to a block's 4,096, under the direct fill and
+# the variants of each organisation
+ROW_S_Q = 2048
+ROW_WIDTHS = (64, 256, 1024, 2048, 4096)
+ROW_VARIANTS = ("unroll4", "reg4", "dpx2", "dpx2reg", "clu4", "dpx2clu2",
+                "dpx2clu4")
+
+
+def bench_rows(device, widths=ROW_WIDTHS, variants=ROW_VARIANTS, log=print,
+               timer=None, S_q: int = ROW_S_Q) -> dict:
+    """Microseconds a row (ms of one launch over its S_q + S_t - 1 rows)
+    of one problem of class (S_q, S_t) per width, under ``wavefront_fill``
+    and each variant that takes the width.  At 64 lanes a problem is one
+    warp (sixteen threads), so there the time a row is the latency of one
+    row's chain of dependent instructions, whatever the organisation.
+    Returns {S_t: {name: us a row}}."""
+    timer = timer or time_launches
+    table = {}
+    for S_t in widths:
+        q, t = random_codes(1, S_q, S_t, device)
+        rows = S_q + S_t - 1
+        row = {"wavefront_fill": timer(lambda: wf.wavefront_fill(q, t), 5,
+                                       1) * 1e3 / rows}
+        for v in variants:
+            if variant_takes(v, S_t):
+                row[v] = timer(lambda: wf.wavefront_fill_variant(v, q, t),
+                               5, 1) * 1e3 / rows
+        table[S_t] = row
+        log(f"rows ({S_q},{S_t}) B=1: us a row " + ", ".join(
+            f"{k} {v:.4f}" for k, v in row.items()))
+    return table
+
+
 TABLES = {"streamed": bench_streamed, "tiled": bench_tiled,
-          "fill": bench_fill, "walk": bench_walk}
+          "fill": bench_fill, "walk": bench_walk, "rows": bench_rows}
 
 
 def main(argv=None) -> int:
@@ -508,15 +674,18 @@ def main(argv=None) -> int:
             print(f"{v:10s} correct={ok[v]}")
         return 0 if all(ok.values()) else 1
     print(f"device: {torch.cuda.get_device_name(0)}")
-    small = time_variants(args.variants, args.device, HARNESS_B)
-    full = time_variants(args.variants, args.device, FULL_B)
-    L = HARNESS_L
+    table = bench_variants(args.variants, args.device)
     for v in ["wavefront_fill"] + args.variants:
-        print(f"{v:14s} correct={ok.get(v, '-')}  "
-              f"B={HARNESS_B}: {small[v]:8.3f} ms "
-              f"{_gcups(HARNESS_B, L, L, small[v]):8.2f} GCUPS  "
-              f"B={FULL_B}: {full[v]:8.3f} ms "
-              f"{_gcups(FULL_B, L, L, full[v]):8.2f} GCUPS")
+        cells = [f"({S_q},{S_t},{B}) {ms[v]:8.3f} ms "
+                 f"{_gcups(B, S_q, S_t, ms[v]):7.2f} GCUPS" if v in ms
+                 else f"({S_q},{S_t},{B}) not taken"
+                 for (S_q, S_t, B), ms in table.items()]
+        print(f"{v:14s} correct={ok.get(v, '-')}  " + "  ".join(cells))
+    for v, c in sass_counts().items():
+        if v in args.variants:
+            print(f"{v:14s} sass: {c['row']} instructions a row body of "
+                  f"{wf.VARIANT_LANES} lanes, {c['per_cell']:.2f} a cell, "
+                  f"{c['regs']} registers")
     for name in tables:
         TABLES[name](args.device)
     return 0 if all(ok.values()) else 1

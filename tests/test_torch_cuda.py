@@ -82,9 +82,13 @@ def test_cuda_aligner_matches_numpy(dev):
 def test_fill_variant_matches_plain(dev, variant):
     """Every variant writes the plain fill's bytes on every band lane, on
     ragged problems (lengths below the class, wildcards) and on classes
-    with S_q != S_t; each call is one launch."""
+    with S_q != S_t, at every class of the list it takes; each call is one
+    launch."""
+    from sedef_tpu_torch.tools import kbench
     for S_q, S_t, B in [(128, 128, 9), (512, 1024, 4), (1024, 256, 3),
                         (384, 132, 2)]:
+        if not kbench.variant_takes(variant, S_t):
+            continue
         rng = np.random.default_rng(S_q + S_t + B)
         qs, ts, _, _, _ = _batch(rng, S_q, S_t, B)
         q, t = _on_card(dev, qs, ts)
@@ -106,6 +110,43 @@ def test_fill_variant_golden_and_errors(dev):
         wf.wavefront_fill_variant("reg", q, t)
     with pytest.raises(ValueError):
         wf.wavefront_fill_variant("nope", q, q)
+    assert wf.wavefront_fill_variant.launches == n0
+
+
+@pytest.mark.parametrize("variant", sorted(wf.VARIANT_CLUSTER))
+@pytest.mark.parametrize("S_q,S_t,B", [(700, 1024, 3), (2048, 512, 2),
+                                       (96, 4096, 1), (1536, 2048, 2)])
+def test_cluster_variant_ragged_few_problems(dev, variant, S_q, S_t, B):
+    """A cluster variant on ragged problems (S_q != S_t, lengths below
+    the class, wildcards) at a batch below the card's SM count: one launch,
+    0 band mismatches against the plain fill, and a cluster the card
+    holds."""
+    assert B * wf.VARIANT_CLUSTER[variant] < torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    assert wf.fill_variant_clusters(variant, S_q, S_t, dev) > 0
+    rng = np.random.default_rng(S_q * 3 + S_t + B)
+    qs, ts, _, _, _ = _batch(rng, S_q, S_t, B)
+    q, t = _on_card(dev, qs, ts)
+    n0 = wf.wavefront_fill_variant.launches
+    p = wf.wavefront_fill_variant(variant, q, t)
+    torch.cuda.synchronize()
+    assert wf.wavefront_fill_variant.launches == n0 + 1
+    _assert_band_equal(p, wf.wavefront_fill_torch(q, t), 0, S_q, S_t, 1)
+
+
+def test_cluster_variant_that_cannot_be_held_raises(dev):
+    """A cluster whose blocks no SM can hold (the query of 240,000 codes
+    is kept in each block's shared memory) is refused: the occupancy says
+    0, the wrapper raises and counts no launch; it does not shrink the
+    cluster or fall back to another variant."""
+    q = torch.zeros((1, 240000), dtype=torch.int8, device=dev)
+    t = torch.zeros((1, 256), dtype=torch.int8, device=dev)
+    n0 = wf.wavefront_fill_variant.launches
+    for variant in sorted(wf.VARIANT_CLUSTER):
+        assert wf.fill_variant_clusters(variant, 240000, 256, dev) == 0
+        with pytest.raises(RuntimeError):
+            wf.wavefront_fill_variant(variant, q, t)
+    torch.cuda.synchronize()
     assert wf.wavefront_fill_variant.launches == n0
 
 

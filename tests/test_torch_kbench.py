@@ -370,3 +370,95 @@ def test_related_codes_share_their_diagonal():
     assert q.dtype == t.dtype == torch.int8
     same = (q == t[:, :64]).float().mean()
     assert 0.85 < float(same) < 0.99
+
+
+SASS_SAMPLE = """
+Fatbin elf code:
+================
+arch = sm_90a
+\t\tFunction : sedef_probe_owned
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+        /*0020*/                   IADD3 R2, R0, 0x1, RZ ;
+        /*0030*/                   NOP ;
+        /*0040*/                   LOP3.LUT R3, R2, R0, RZ, 0x3c, !PT ;
+        /*0050*/               @P0 BRA 0x20 ;
+        /*0060*/                   EXIT ;
+        /*0070*/                   BRA 0x70;
+\t\tFunction : sedef_probe_owned2
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   VIADD.16x2 R7, R0, R7 ;
+        /*0020*/              @!P1 BRA 0x10 ;
+        /*0030*/                   EXIT ;
+
+Fatbin elf code:
+================
+\t\tFunction : other_unit_kernel
+        /*0000*/                   BRA 0x0 ;
+"""
+
+
+def test_sass_loop_count_reads_the_widest_backward_branch():
+    """``sass_counts``' parser: functions of the section holding the
+    probes, the instructions (NOPs left out) from a backward branch's
+    target to the branch, the widest such loop."""
+    funcs = kbench._sass_functions(SASS_SAMPLE)
+    assert sorted(funcs) == ["sedef_probe_owned", "sedef_probe_owned2"]
+    assert kbench._loop_instructions(funcs["sedef_probe_owned"]) == 3
+    assert kbench._loop_instructions(funcs["sedef_probe_owned2"]) == 2
+    assert kbench._loop_instructions([(0, "EXIT")]) == 0
+
+
+def test_sass_probes_cover_the_redesigned_variants():
+    probed = {v for vs in kbench.SASS_PROBES.values() for v in vs}
+    for v in ("unroll4", "reg4", "dpx2", "dpx2u4", "dpx2reg", "clu2", "clu4",
+              "dpx2clu2", "dpx2clu4"):
+        assert v in probed and v in kbench.SASS_KERNELS
+    assert probed <= set(wf.FILL_VARIANTS)
+
+
+def test_sass_counts_without_a_toolkit_is_empty(monkeypatch):
+    from sedef_tpu_torch.native import build
+
+    def missing():
+        raise FileNotFoundError("nvcc")
+    monkeypatch.setattr(build, "nvcc_path", missing)
+    monkeypatch.setattr("shutil.which", lambda name: None)
+    assert kbench.sass_counts() == {}
+
+
+def test_variant_shapes_are_the_harness_and_the_main_paths():
+    assert kbench.VARIANT_SHAPES == ((1024, 1024, 64), (1024, 1024, 1056),
+                                     (128, 128, 32), (1024, 1024, 4),
+                                     (2048, 2048, 2))
+    for shape in kbench.VARIANT_SHAPES:
+        assert all(kbench.variant_takes(v, shape[1])
+                   for v in wf.FILL_VARIANTS)
+    assert not kbench.variant_takes("clu4", 144)
+    assert kbench.variant_takes("base", 130)
+
+
+def test_bench_rows_cpu_path():
+    """``bench_rows`` on the CPU with a counting timer: a row's time is
+    the launch's over its rows, and each variant appears only at the widths
+    it takes; no kernel is launched."""
+    calls = []
+
+    def timer(fn, n, warm):
+        fn()
+        calls.append(n)
+        return 1.0
+
+    lines = []
+    n0 = wf.wavefront_fill_variant.launches
+    table = kbench.bench_rows("cpu", widths=(32, 48), S_q=20,
+                              variants=("dpx2", "clu4", "dpx2clu2"),
+                              log=lines.append, timer=timer)
+    assert set(table) == {32, 48}
+    assert table[32] == {k: 1e3 / 51 for k in ("wavefront_fill", "dpx2",
+                                               "clu4", "dpx2clu2")}
+    assert set(table[48]) == {"wavefront_fill", "dpx2", "dpx2clu2"}
+    assert len(calls) == 7
+    assert wf.wavefront_fill_variant.launches == n0
+    assert lines[0].startswith("rows (20,32) B=1: us a row wavefront_fill ")
+    assert "rows" in kbench.TABLES
