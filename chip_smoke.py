@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch + CUDA port (``sedef_tpu_torch``) on one card.
 
     python3 chip_smoke.py [--spread N] [--profile] [--main-only]
+                          [--dense-mbp N]
 
 Phases, one line each or more (any failure exits non-zero, with no result
 line):
@@ -71,6 +72,23 @@ line):
    full batch (1,024 intervals, W 512) of each roll-length class, the
    512 class equal to the same batch's CPU run; each device op's calls,
    CUDA-event ms and bound;
+5d. the main path at hg19 seed density (``[dense]`` lines): the dense
+   rehearsal recipe (``sedef_tpu_torch.tools.rehearsal``) at 50 Mbp
+   (``--dense-mbp``; 100 is ``tools/dense_parity.py``'s genome) on 2
+   chromosomes, seed 1905, through ``run_pipeline`` (64 buckets, jobs 2)
+   on the card route at the calibrated floor, then on the host route:
+   seeds.bed, aligned.bed and final.bed byte-equal, ``wavefront_fill`` and
+   ``backtrack_pack`` launched; both walls with their stage walls, the
+   rows and seeds/Kbp beside the reference package's record at 100 Mbp
+   (reported, not asserted), the card's problems, cells and launch groups,
+   the widest class, peak device memory, each wrapper's launches, and the
+   kernels' time (CUDA events around each launch of the card run, summed;
+   with ``--profile`` the card's busy time under torch.profiler's CUDA
+   activity instead);
+5e. ``accuracy_table``'s per-rate classification (``[accuracy]`` lines):
+   10 pairs a rate at rates 0-30 by 5, 1-20 Kbp, one process, with a card
+   aligner at its calibrated floors and with a cpu one (whose stage 1
+   runs on the host): the same class for every pair;
 6. with ``--spread N``: N timed runs per route and genome, routes
    alternated; with ``--profile``: a ``torch.profiler`` trace of each card
    run (device busy time, kernels, copies); with ``--main-only``: phases 1,
@@ -1028,8 +1046,6 @@ def _run(fa, out_dir, al):
 
 
 def phase_main_path(genomes, tmp):
-    import statistics
-
     from sedef_tpu_torch.models.genome_sim import recall_of
     from sedef_tpu_torch.ops import wavefront as wf
     _zero_counts()
@@ -1068,11 +1084,7 @@ def phase_main_path(genomes, tmp):
             f"{len(out['aligned'].splitlines())} rows and final.bed = host "
             f"route's; {len(rows)} final SDs, recall {rec}/{len(planted)}")
         log(f"[main] {run} launch groups (route (S_q,S_t): groups, median "
-            f"/ most problems a group): " + "; ".join(
-                f"{route} ({S_q},{S_t}): {len(g)}, "
-                f"{statistics.median(g):g} / {max(g)}"
-                for (route, S_q, S_t), g in sorted(
-                    getattr(al, "launch_groups", {}).items())))
+            f"/ most problems a group): {_launch_groups(al)}")
     missing = [n for n in MAIN_PATH_KERNELS if launches[n] <= 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
@@ -1721,6 +1733,208 @@ def phase_stage1(genomes, host, tmp):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 5d: the main path at hg19 seed density
+# ---------------------------------------------------------------------------
+
+# the dense rehearsal recipe (sedef_tpu_torch.tools.rehearsal) on 2
+# chromosomes, seed 1905, nbuckets and jobs as tools/dense_parity.py ran
+# it; by default at 50 Mbp (cut from that tool's 100 Mbp for the time
+# limit; 0.64 seeds/Kbp there against 0.70 at 100 Mbp), --dense-mbp 100
+# for its genome
+DENSE_MBP = 50
+DENSE_CHROMS = 2
+DENSE_NBUCKETS = 64
+# the reference package's rows on the 100 Mbp genome
+# (docs/HG19_DENSE_PARITY.json, an older tree: reported beside the port's,
+# not asserted)
+DENSE_RECORDED = {"seeds": 69_674, "aligned": 16_923, "final": 16_922}
+
+
+class _LaunchEvents:
+    """CUDA events on the launching stream around every kernel launch of
+    the wrappers (``wf._launch`` wrapped while the block runs, no
+    profiler): ``ms()`` gives {wrapper: (summed event-bracketed ms,
+    launches)}."""
+
+    what = ("kernel time (CUDA events around each of the wrappers' "
+            "launches, summed, not a profiler's busy share: an upper bound, "
+            "as the other job thread's work on the stream can fall between "
+            "a pair; copies and torch's own kernels outside one are not in "
+            "it)")
+
+    def __enter__(self):
+        import threading
+
+        import torch
+
+        from sedef_tpu_torch.ops import wavefront as wf
+        self.wf, self.launch = wf, wf._launch
+        self.lock, self.events = threading.Lock(), []
+
+        def timed(wrapper, dev, fn, *args):
+            stream = torch.cuda.current_stream(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            self.launch(wrapper, dev, fn, *args)
+            end.record(stream)
+            with self.lock:
+                self.events.append((wrapper.__name__, start, end))
+        wf._launch = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.wf._launch = self.launch
+
+    def ms(self) -> dict:
+        import torch
+        torch.cuda.synchronize()
+        per = {}
+        for name, start, end in self.events:
+            ms, n = per.get(name, (0.0, 0))
+            per[name] = (ms + start.elapsed_time(end), n + 1)
+        return per
+
+
+class _CudaTrace:
+    """torch.profiler's CUDA activity alone over the block (the card's
+    kernels and copies, no host-op tracing): ``ms()`` gives {kernel or
+    copy: (device ms, calls)}."""
+
+    what = "device busy (torch.profiler, CUDA activity: kernels and copies)"
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.prof.__exit__(*exc)
+
+    def ms(self) -> dict:
+        per = {}
+        for ev in self.prof.key_averages():
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            if us > 0:
+                per[ev.key] = (us / 1e3, ev.count)
+        return per
+
+
+def _launch_groups(al) -> str:
+    import statistics
+    return "; ".join(
+        f"{route} ({S_q},{S_t}): {len(g)}, {statistics.median(g):g} / "
+        f"{max(g)}" for (route, S_q, S_t), g in sorted(
+            getattr(al, "launch_groups", {}).items()))
+
+
+def phase_dense(tmp, mbp, profile=False):
+    """The dense recipe at ``mbp`` Mbp through ``run_pipeline`` on the card
+    route at the calibrated floor, each kernel launch timed by CUDA events
+    (with ``profile``: traced by torch.profiler's CUDA activity instead),
+    then on the host route: the three beds byte-equal.  Returns the card
+    run's launches, per wrapper."""
+    import torch
+
+    from sedef_tpu_torch.tools import rehearsal
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "dense")
+    t0 = time.perf_counter()
+    fa, planted = rehearsal.generate("dense", mbp, work, DENSE_CHROMS)
+    spec = rehearsal.spec_of("dense", mbp, DENSE_CHROMS)
+    log(f"[dense] {spec}: {planted} planted SDs, made in "
+        f"{time.perf_counter() - t0:.1f}s")
+    al = _aligner("card", None)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with (_CudaTrace() if profile else _LaunchEvents()) as events:
+        card, card_paths = rehearsal.run(fa, os.path.join(work, "card"), al,
+                                         JOBS, DENSE_NBUCKETS, echo=False)
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    kernel_ms = events.ms()
+    busy = sum(ms for ms, _ in kernel_ms.values())
+    host, host_paths = rehearsal.run(fa, os.path.join(work, "host"),
+                                     _aligner("host", None), JOBS,
+                                     DENSE_NBUCKETS, echo=False)
+    for s in ("seeds", "aligned", "final"):
+        if (open(card_paths[s], "rb").read()
+                != open(host_paths[s], "rb").read()):
+            raise AssertionError(f"[dense] {s}.bed differs between the card "
+                                 f"and the host route")
+    _require_launched("the dense card run", counts,
+                      ("wavefront_fill", "backtrack_pack"))
+    if busy <= 0:
+        raise AssertionError(f"[dense] no device time: {events.what}")
+    widest = max(((S_t, S_q, route) for (route, S_q, S_t)
+                  in al.launch_groups), default=None)
+    log(f"[dense] card route (calibrated floor: {al.DEVICE_BATCH_MIN} "
+        f"problems / {al.DEVICE_BATCH_MIN_CELLS} cells) {card['wall_s']:.3f}"
+        f" s, stages {card['stage_s']}; host route {host['wall_s']:.3f} s, "
+        f"stages {host['stage_s']}; seeds.bed, aligned.bed and final.bed "
+        f"byte-equal")
+    log(f"[dense] rows {card['rows']}, {card['seeds_per_kbp']:.4f} "
+        f"seeds/Kbp (the reference package's record at 100 Mbp: "
+        f"{DENSE_RECORDED}, {DENSE_RECORDED['seeds'] / 1e5:.4f} seeds/Kbp)")
+    log(f"[dense] on the card {card['device_problems']} problems, "
+        f"{card['device_cells']} cells, {card['device_batches']} launch "
+        f"groups; widest class (S_t, S_q, route) {widest}; peak device "
+        f"memory {peak / 2**20:.1f} MiB; launches {counts}")
+    log(f"[dense] launch groups (route (S_q,S_t): groups, median / most "
+        f"problems a group): {_launch_groups(al)}")
+    log(f"[dense] {events.what} {busy:.3f} ms, "
+        f"{100 * busy / 1e3 / card['wall_s']:.3f}% of the card run's wall; "
+        + "; ".join(f"{k[:48]} {ms:.3f} ms x{n}" for k, (ms, n) in sorted(
+            kernel_ms.items(), key=lambda kv: -kv[1][0])[:6]))
+    log(f"[dense] phase took {time.perf_counter() - t_phase:.1f}s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 5e: the accuracy table's classification on the card and the CPU
+# ---------------------------------------------------------------------------
+
+ACCURACY_RATES = (0, 5, 10, 15, 20, 25, 30)
+ACCURACY_RUNS = 10
+ACCURACY_MAX_LEN = 20_000
+
+
+def phase_accuracy():
+    """``accuracy_table``'s per-rate classification (ACCURACY_RUNS pairs a
+    rate, 1,000-ACCURACY_MAX_LEN bp, one process) with a card aligner at
+    its calibrated floors and with a cpu one (whose stage 1 runs on the
+    host: the seeder's stage-1 gates, which ``devcal.apply`` set for this
+    process, are never read for it): the same class for every pair."""
+    from sedef_tpu_torch.tools import accuracy_table as acc
+    from sedef_tpu_torch.tools.rehearsal import make_aligner
+    t_phase = t0 = time.perf_counter()
+    _zero_counts()
+    al = make_aligner("cuda")
+    card = {e: acc.classify_rate(e, ACCURACY_RUNS, ACCURACY_MAX_LEN,
+                                 aligner=al) for e in ACCURACY_RATES}
+    counts = _read_counts()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = {e: acc.classify_rate(e, ACCURACY_RUNS, ACCURACY_MAX_LEN,
+                                device="cpu") for e in ACCURACY_RATES}
+    cpu_s = time.perf_counter() - t0
+    for e in ACCURACY_RATES:
+        if card[e] != cpu[e]:
+            raise AssertionError(f"[accuracy] error {e}: card {card[e]}, "
+                                 f"cpu {cpu[e]}")
+    log("[accuracy] error;hits;misses;partials (card = cpu, pair by pair): "
+        + " ".join(acc.row(e, {c: card[e].count(c) for c in acc.CLASSES})
+                   for e in ACCURACY_RATES))
+    log(f"[accuracy] {ACCURACY_RUNS} pairs a rate, 1000-{ACCURACY_MAX_LEN} "
+        f"bp: card {card_s:.3f} s ({al.device_problems} gap DPs on the card "
+        f"in {al.device_batches} launch groups; launches {counts}), cpu "
+        f"{cpu_s:.3f} s")
+    log(f"[accuracy] phase took {time.perf_counter() - t_phase:.1f}s")
+
+
 def phase_spread(genomes, tmp, n):
     """``n`` timed runs per route and genome, routes alternated (one
     untimed warm run first)."""
@@ -1774,11 +1988,18 @@ def main() -> int:
     ap.add_argument("--spread", type=int, default=0,
                     help="timed runs per route and genome (default 0)")
     ap.add_argument("--profile", action="store_true",
-                    help="trace each card run with torch.profiler")
+                    help="trace each card run with torch.profiler (the "
+                         "[dense] card run's CUDA activity in place of its "
+                         "CUDA events)")
+    ap.add_argument("--dense-mbp", type=float, default=DENSE_MBP,
+                    help=f"size of the [dense] genome in Mbp (default "
+                         f"{DENSE_MBP}; 100: the genome whose rows the "
+                         f"reference package recorded)")
     ap.add_argument("--main-only", action="store_true",
                     help="build and the main path alone: no kernel phase, "
                          "no calibration phase, no result line")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     phase_device()
     import torch
     phase_build()
@@ -1795,6 +2016,8 @@ def main() -> int:
         if not args.main_only:
             phase_entry_points(genomes, host, tmp)
             phase_stage1(genomes, host, tmp)
+            dense_launches = phase_dense(tmp, args.dense_mbp, args.profile)
+            phase_accuracy()
         if args.spread:
             phase_spread(genomes, tmp, args.spread)
         if args.profile:
@@ -1808,7 +2031,9 @@ def main() -> int:
                 "launches": (launches if name in MAIN_PATH_KERNELS
                              else calibration)[name],
                 "calibration_launches": calibration[name],
+                "dense_launches": dense_launches[name],
                 **summary[name]} for name, (src, ref) in KERNELS.items()]
+    log(f"[smoke] took {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,16 +55,22 @@ def jaccard_align(q: str, r: str, cfg: Config = DEFAULT) -> list[SimHit]:
     return out
 
 
-def seed_align(q: str, r: str, cfg: Config = DEFAULT) -> list[SimHit]:
+def seed_align(q: str, r: str, cfg: Config = DEFAULT,
+               aligner: WavefrontAligner | None = None) -> list[SimHit]:
     """Production-style seeding between two sequences (initial_search
     semantics with init_len = MIN_READ_SIZE), used by the accuracy
-    harness."""
+    harness.  Stage 1's device engines, where the seeder's gates let them
+    run, run on the device ``run_pipeline`` would give them for
+    ``aligner`` (``pipeline.auto_device``): the host for a ``cpu`` one,
+    the card where no aligner is given."""
+    from .pipeline import auto_device
     from .seeder import initial_search
     qh = MinimizerIndex(PackedSeq("qry", q), cfg.search.kmer_size,
                         cfg.search.window_size, cfg=cfg)
     rh = MinimizerIndex(PackedSeq("ref", r), cfg.search.kmer_size,
                         cfg.search.window_size, cfg=cfg)
-    hits = initial_search(qh, rh, False, cfg)
+    hits = initial_search(qh, rh, False, cfg,
+                          use_device=auto_device(aligner) or False)
     return [SimHit(h.query_start, h.query_end, h.ref_start, h.ref_end,
                    h.aln) for h in hits]
 
@@ -212,7 +218,8 @@ def classify_pair(seq1: str, seq2: str, error: int,
     engine through the identical classification shape
     (tools/accuracy_table.py --ref-oracle)."""
     alen = (len(seq1) + len(seq2)) / 2
-    seeds = seed_fn(seq1, seq2) if seed_fn else seed_align(seq1, seq2, cfg)
+    seeds = (seed_fn(seq1, seq2) if seed_fn
+             else seed_align(seq1, seq2, cfg, aligner))
     t1 = []
     t2 = []
     for h in seeds:

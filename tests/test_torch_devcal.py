@@ -27,6 +27,21 @@ torch.set_num_threads(1)
 LATENCIES = (0.05, 0.1, 1, 10, 30, 120, 10000)
 
 
+# the seeder's process-wide stage-1 gates as this file found them
+GATES = ("PREFILTER_ON", "PREFILTER_MIN_STEPS", "ROLL_DEVICE_MIN")
+IMPORTED_GATES = {g: getattr(seeder, g) for g in GATES}
+
+
+@pytest.fixture(autouse=True)
+def _gates_left_as_imported(request):
+    """Set up before the fixture below and so torn down after its
+    monkeypatch: every test must leave the gates as imported (a gate left
+    on sends a later default-device search to a card)."""
+    yield
+    left = {g: getattr(seeder, g) for g in GATES}
+    assert left == IMPORTED_GATES, request.node.name
+
+
 @pytest.fixture(autouse=True)
 def _keep_prefilter_gates(monkeypatch):
     """``devcal.apply`` on a cuda aligner installs the process's stage-1
@@ -191,16 +206,18 @@ def test_apply_leaves_a_cpu_aligner_alone(monkeypatch):
     assert "DEVICE_BATCH_MIN_CELLS" not in vars(al)
 
 
-def test_apply_respects_env_and_caller_overrides(monkeypatch):
+def test_apply_respects_env_and_caller_overrides():
     cal = Calibration.derive(0.15, True, host_gcups=2.5, floors=CARD_FLOORS)
-    monkeypatch.setenv("SEDEF_DEVICE_BATCH_MIN_CELLS", "777")
-    monkeypatch.setattr(wf.WavefrontAligner, "DEVICE_BATCH_MIN_CELLS", 777)
-    al = _cuda_aligner()
-    applied = devcal.apply(al, cal)
-    assert "device_batch_min_cells" not in applied
-    assert al.DEVICE_BATCH_MIN_CELLS == 777 and al.DEVICE_BATCH_MIN == 6
-    monkeypatch.delenv("SEDEF_DEVICE_BATCH_MIN_CELLS")
-    monkeypatch.undo()
+    # the env override, undone before the rest (the autouse fixture's
+    # patch of the seeder's gates stays in force: ``apply`` below writes
+    # them)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SEDEF_DEVICE_BATCH_MIN_CELLS", "777")
+        mp.setattr(wf.WavefrontAligner, "DEVICE_BATCH_MIN_CELLS", 777)
+        al = _cuda_aligner()
+        applied = devcal.apply(al, cal)
+        assert "device_batch_min_cells" not in applied
+        assert al.DEVICE_BATCH_MIN_CELLS == 777 and al.DEVICE_BATCH_MIN == 6
     # a value the caller set on the instance survives
     al = _cuda_aligner()
     al.DEVICE_BATCH_MIN_CELLS = 1 << 18
@@ -297,3 +314,4 @@ def test_apply_prefilter_env_overrides_and_cpu_aligner(monkeypatch):
     assert devcal.apply(wf.WavefrontAligner(device="cpu"), cal) == {
         "device": "cpu", "calibrated": False}
     assert (seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS) == (False, 123)
+

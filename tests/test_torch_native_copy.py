@@ -32,8 +32,10 @@ def test_build_sources_lie_inside_the_port():
 
 
 def test_port_opens_no_file_of_the_reference_package(tmp_path):
-    """Importing the port, loading its native library and aligning a
-    batch opens no path under ``sedef_tpu/`` (audit hook on ``open``)."""
+    """Importing the port (its tools and the modules they reach
+    included), loading its native library and aligning a batch opens no
+    path under ``sedef_tpu/`` (audit hook on ``open``) and imports neither
+    jax nor ``sedef_tpu``."""
     code = (
         "import sys, os\n"
         f"ref = {str(REPO / 'sedef_tpu') + os.sep!r}\n"
@@ -48,6 +50,11 @@ def test_port_opens_no_file_of_the_reference_package(tmp_path):
         "from sedef_tpu_torch.native import build, lib\n"
         "from sedef_tpu_torch.ops import wavefront as wf\n"
         "import sedef_tpu_torch.devcal, sedef_tpu_torch.tools.kbench\n"
+        "from sedef_tpu_torch.tools import (accuracy_table, perf_pipeline,\n"
+        "                                   rehearsal)\n"
+        "from sedef_tpu_torch.models import (genome_sim, pipeline, reporter,\n"
+        "                                    simulate)\n"
+        "assert rehearsal.recipe_kwargs('dense', 2_000_000)['n_chroms'] == 2\n"
         "build.build_native()\n"
         "assert lib.has('align')\n"
         "al = wf.WavefrontAligner(device='cpu')\n"

@@ -54,6 +54,52 @@ def test_simulation_accuracy(monkeypatch, error, native_region):
         assert al.device_problems > 0
 
 
+@pytest.mark.parametrize("error", [0, 15])
+def test_cpu_classify_pair_keeps_stage1_on_the_host(monkeypatch, error):
+    """With the seeder's prefilter gate on for every search (as
+    ``devcal.apply`` leaves it on a card), ``classify_pair`` with a cpu
+    aligner runs stage 1 on the host, as ``run_pipeline`` with that
+    aligner does: no card is touched (this machine has none) and each
+    class is the reference's."""
+    from sedef_tpu_torch.models import seeder
+    monkeypatch.setattr(seeder, "PREFILTER_ON", True)
+    monkeypatch.setattr(seeder, "PREFILTER_MIN_STEPS", 0)
+    monkeypatch.delenv("SEDEF_NO_DEVICE", raising=False)
+    rng, ref_rng = random.Random(200 + error), random.Random(200 + error)
+    al = wf.WavefrontAligner(device="cpu")
+    ref_al = RefAligner(use_tpu=False)
+    got, want = [], []
+    for _ in range(3):
+        s1, s2, _ = sim.generate_random_sd(rng, error, min_len=1200,
+                                           max_len=4000)
+        r1, r2, _ = ref_sim.generate_random_sd(ref_rng, error, min_len=1200,
+                                               max_len=4000)
+        got.append(sim.classify_pair(s1, s2, error, aligner=al))
+        want.append(ref_sim.classify_pair(r1, r2, error, aligner=ref_al))
+    assert got == want
+
+
+@pytest.mark.parametrize("device, want", [(None, torch.device("cuda")),
+                                          ("cpu", False)])
+def test_seed_align_takes_stage1_device_from_its_aligner(monkeypatch, device,
+                                                         want):
+    """``seed_align`` hands ``initial_search`` the stage-1 device
+    ``run_pipeline`` would use with the same aligner: the card where no
+    aligner is given, the host for a cpu one."""
+    from sedef_tpu_torch.models import seeder
+    monkeypatch.delenv("SEDEF_NO_DEVICE", raising=False)
+    seen = []
+    monkeypatch.setattr(seeder, "initial_search",
+                        lambda *a, use_device=None, **k:
+                        seen.append(use_device) or [])
+    al = None if device is None else wf.WavefrontAligner(device=device)
+    s1, s2, _ = sim.generate_random_sd(random.Random(5), 10, min_len=1200,
+                                       max_len=2000)
+    assert sim.seed_align(s1, s2, aligner=al) == []
+    assert sim.classify_pair(s1, s2, 10, aligner=al) == "miss"
+    assert seen == [want, want]
+
+
 @pytest.mark.skipif(not native.has("fast_align"),
                     reason="native lib not built")
 @pytest.mark.parametrize("seed", [1, 2, 3])
