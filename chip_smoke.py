@@ -61,17 +61,25 @@ line):
 5c. stage 1's device engines (``[stage1]`` lines, one JSON line of them):
    the device index build on both strands of every e2e-20M chromosome
    against the host scan and the stable sort; ``search_stage(jobs=1)``
-   (the whole-job path) with the roll prefilter forced on against the
-   host route on both genomes, seeds.bed byte-identical, with the
-   intervals planned and pruned in each phase, the composition rows, the
-   device ms from dispatch to collect and both stage-1 walls; one
-   ``run_pipeline(jobs=1)`` of e2e-20M under the prefilter gates
-   ``devcal.apply`` installs, beds equal to the host route's; the roll
-   engine forced on for the first 2 Mbp of one chromosome against itself
-   and its reverse complement, seeds equal to the host route's, and one
-   full batch (1,024 intervals, W 512) of each roll-length class, the
-   512 class equal to the same batch's CPU run; each device op's calls,
-   CUDA-event ms and bound;
+   (the whole-job path) on both genomes with the roll prefilter forced on
+   and then with the roll engine forced on (``ROLL_DEVICE_MIN = 0``),
+   seeds.bed byte-identical to the host route's, with the intervals
+   planned and pruned in each phase, the composition rows, the device ms
+   from dispatch to collect and the stage-1 walls; every window-ideal
+   call of the prefilter runs (kernel ``csrc/window_ideals.cu``) against
+   its plain version on the same tensors; one ``run_pipeline(jobs=1)`` of
+   e2e-20M under the prefilter gates ``devcal.apply`` installs, beds equal
+   to the host route's; the roll engine (kernel ``csrc/roll_engine.cu``)
+   forced on for the dense genome's first chromosome (25 Mbp at the
+   default 50) against itself and its reverse complement, seeds equal to
+   the host route's; one full batch (1,024 intervals, W 512) of each
+   roll-length class and a batch of edge rows (empty query windows, HAS_N
+   keys, a window past SQ, rows past each class, a store of 64 entries)
+   against the plain version on the card, the 512 class also against
+   ``RollEngine.run`` on the CPU; each device op's calls, CUDA-event ms
+   and bound, and each stage-1 kernel's launches on these paths (each
+   path's count from 0), its ms against the plain version's and its
+   bound;
 5d. the main path at hg19 seed density (``[dense]`` lines): the dense
    rehearsal recipe (``sedef_tpu_torch.tools.rehearsal``) at 50 Mbp
    (``--dense-mbp``; 100 is ``tools/dense_parity.py``'s genome) on 2
@@ -104,7 +112,13 @@ row of a traceback; the variant kernel is held to half its fill's
 operations (the 16x2 cell of ``csrc/dp_cell2.cuh`` does two lanes an
 instruction), and its line also carries the one-lane and the byte bound.
 No single PyTorch call computes an affine-gap
-direction matrix or its traceback, so ``library_ms`` is null throughout.
+direction matrix or its traceback, an interval's roll or a window's ideal,
+so ``library_ms`` is null throughout.  A stage-1 kernel's bound counts
+the work its inputs need (``_least_work``): 16 operations a sketch update
+of a roll, and for a window-ideal row of n keys n log2 n comparisons, a
+search of the query row and a scan element a key; ``bound_formula_ms``
+beside it holds the call to ``_op_costs``' formulas, the plain versions'
+W- or width-wide row passes, by which the stage-1 op lines are held.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1359,11 +1373,6 @@ def phase_entry_points(genomes, host, tmp):
 # Phase 5c: stage 1's device engines
 # ---------------------------------------------------------------------------
 
-# the roll engine's pair: the first ROLL_CUT_BP of one e2e-20M chromosome
-# against itself and its reverse complement (a cut of scale, only to keep
-# the phase inside the time limit: the engine launches ~60 tensor ops a
-# roll step)
-ROLL_CUT_BP = 2_000_000
 SORT_OPS = 1.0  # operations a comparison of a sort (n log2 n of them)
 SCAN_OPS = 8    # operations an element of the union-rank scan
 
@@ -1428,9 +1437,10 @@ class OpTimer:
     """Wraps the stage-1 device ops in their modules: per op, calls,
     CUDA-event time around each call (its kernels as the host launched
     them), the summed bound of the calls' work, and the largest rows
-    shape of a call."""
+    shape of a call.  ``record``: the ops whose calls (arguments and
+    output) are kept, for a later check against their plain versions."""
 
-    def __init__(self):
+    def __init__(self, record=()):
         from sedef_tpu_torch.ops import prefilter, roll_engine, winnow_device
         self.mods = {"_window_sketches": prefilter,
                      "_span_intersections": prefilter,
@@ -1438,6 +1448,7 @@ class OpTimer:
                      "_device_index": winnow_device,
                      "_roll_batch": roll_engine}
         self.costs = _op_costs()
+        self.record = set(record)
         self.real = {}
         self.reset()
 
@@ -1445,6 +1456,7 @@ class OpTimer:
         self.events = {n: [] for n in self.mods}
         self.work = {n: [0.0, 0.0] for n in self.mods}
         self.shape = {}
+        self.calls = {n: [] for n in self.record}
 
     def __enter__(self):
         import torch
@@ -1462,6 +1474,8 @@ class OpTimer:
                 out = _f(*a, **kw)
                 e1.record()
                 self.events[_n].append((e0, e1))
+                if _n in self.record:
+                    self.calls[_n].append((a, kw, out))
                 return out
 
             setattr(mod, name, wrapped)
@@ -1483,6 +1497,172 @@ class OpTimer:
                              "shape": self.shape.get(name),
                              **bound(ops, nbytes)}
         return out
+
+
+# stage 1's kernels: wrapper -> (its CUDA source, the device program it
+# replaces)
+SRC_ROLL = "sedef_tpu_torch/csrc/roll_engine.cu"
+SRC_IDEALS = "sedef_tpu_torch/csrc/window_ideals.cu"
+STAGE1_KERNELS = {
+    "_roll_batch": (SRC_ROLL, "sedef_tpu/ops/roll_engine.py:143"),
+    "_span_intersections": (SRC_IDEALS, "sedef_tpu/ops/prefilter.py:92"),
+    "_composition_ideals": (SRC_IDEALS, "sedef_tpu/ops/prefilter.py:118"),
+}
+# per stage-1 kernel: launches on stage 1's paths (each path's run counted
+# from 0), the largest difference from the plain version, the rows
+# compared, and the times at the shape the summary reports
+STAGE1 = {name: {"launches": 0, "max_abs_err": 0, "compared": 0,
+                 "library_ms": None} for name in STAGE1_KERNELS}
+# the stage-1 paths a kernel must have been launched on
+STAGE1_PATHS = {"_roll_batch": [], "_span_intersections": [],
+                "_composition_ideals": []}
+
+
+def _stage1_wrappers():
+    from sedef_tpu_torch.ops import prefilter, roll_engine
+    return prefilter.KERNEL_WRAPPERS + roll_engine.KERNEL_WRAPPERS
+
+
+class _Stage1Path:
+    """One run of a stage-1 path: every stage-1 kernel's count set to 0
+    before it, read after it and added to STAGE1; ``expect``: the kernels
+    the run must have launched."""
+
+    def __init__(self, what, expect):
+        self.what, self.expect = what, expect
+
+    def __enter__(self):
+        for w in _stage1_wrappers():
+            w.launches = 0
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        if exc_type is not None:
+            return False
+        self.counts = {w.__name__: w.launches for w in _stage1_wrappers()}
+        for name, n in self.counts.items():
+            STAGE1[name]["launches"] += n
+            if n:
+                STAGE1_PATHS[name].append(self.what)
+        _require_launched(self.what, self.counts, self.expect)
+        return False
+
+
+def _compare(name, got, want):
+    """Kernel outputs against the plain version's, equal dtypes and
+    values; the largest difference goes into STAGE1."""
+    rec = STAGE1[name]
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{name}: {g.dtype} {tuple(g.shape)} != "
+                                 f"plain {w.dtype} {tuple(w.shape)}")
+        err = int((g.long() - w.long()).abs().max()) if g.numel() else 0
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["compared"] += g.numel()
+        _require(int((g != w).sum()), f"{name} at {tuple(g.shape)}")
+
+
+def _event_ms(fn, reps=3):
+    """Median CUDA-event ms of ``reps`` calls of fn (after one warm-up)
+    and its last output."""
+    import statistics
+
+    import torch
+    out = fn()
+    ms = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    return statistics.median(ms), out
+
+
+def _time_against_plain(name, kernel, plain, args, kw, at):
+    """The kernel's and the plain version's CUDA-event ms on the same
+    inputs, their outputs compared; the summary's times and bound."""
+    k_ms, got = _event_ms(lambda: kernel(*args, **kw))
+    p_ms, want = _event_ms(lambda: plain(*args, **kw), reps=1)
+    _compare(name, got if isinstance(got, tuple) else (got,),
+             want if isinstance(want, tuple) else (want,))
+    ops, nbytes, _ = _op_costs()[name](*args, **kw)
+    formula = bound(ops, nbytes)
+    STAGE1[name].update(ms=k_ms, plain_ms=p_ms, at=at,
+                        **bound(*_least_work(plain, args, kw)),
+                        bound_formula_ms=formula["bound_ms"],
+                        bound_formula_by=formula["bound_by"])
+    return k_ms, p_ms
+
+
+# integer operations a sketch update of a roll needs at the least: the
+# two loads and the tests of its step, one comparison of the place
+# search, the found / flag tests, the boundary read and its comparison,
+# the counter and the best-jaccard update
+UPDATE_OPS = 16
+
+
+def _least_work(plain, args, kw):
+    """(ops, bytes) a stage-1 kernel's call needs on these inputs, at the
+    least: every input read once and every output written once, and the
+    operations the data asks for (a roll: UPDATE_OPS for each sketch
+    update its rows make, init adds and two a step; a window-ideal row:
+    n log2 n comparisons to sort its n keys, a search of the query row
+    and a scan element for each).  ``_op_costs`` holds the same calls to
+    a W- or width-wide pass instead, the plain versions' work."""
+    import inspect
+    import math
+
+    import torch
+    a = inspect.signature(plain).bind(*args, **kw).arguments
+
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts
+                   if t is not None)
+
+    if "n_steps" in a:
+        updates = (int(a["init_cnt"].clamp(0, a["INIT_PAD"]).sum())
+                   + 2 * int(a["n_steps"].clamp(0, a["T_PAD"]).sum()))
+        cols = [a[c] for c in ("qws", "qwe", "t0", "rws0", "init_cnt",
+                               "n_steps", "re0")]
+        return (UPDATE_OPS * updates,
+                nb(a["r_keys"], a["r_locs"], a["q_keys"], a["limit_lut"],
+                   *cols) + cols[0].shape[0] * 9)
+    lo, hi = (a["sa"], a["sb"]) if "sa" in a else (a["a"], a["b"])
+    width = a.get("SA", a.get("RW"))
+    iv = a.get("iv_id")
+    SQ = a["qk_all"].shape[1]
+    n = (hi - lo).clamp(min=0).double()
+    n = torch.where(hi - lo > width, 0, n)
+    ops = float((n * (torch.log2(n.clamp(min=2)) + math.log2(SQ)
+                      + SCAN_OPS)).sum())
+    q_rows = lo.shape[0] if iv is None else int(torch.unique(iv).numel())
+    return (ops, 4 * float(n.sum()) + 4 * q_rows * (SQ + 1)
+            + nb(lo, hi, iv) + 4 * lo.shape[0])
+
+
+def _check_ideal_calls(timer):
+    """Every window-ideal call a whole-job run made, its kernel's output
+    against the plain version on the same CUDA tensors; the largest call
+    of each op is timed against its plain version."""
+    from sedef_tpu_torch.ops import prefilter as pf
+    done = {}
+    for name in ("_span_intersections", "_composition_ideals"):
+        plain = getattr(pf, name + "_torch")
+        calls = timer.calls.get(name, [])
+        for a, kw, out in calls:
+            _compare(name, (out,), (plain(*a, **kw),))
+        if calls:
+            a, kw, _ = max(calls, key=lambda c: c[0][3].shape[0])
+            if a[3].shape[0] >= STAGE1[name].get("rows", 0):
+                STAGE1[name]["rows"] = a[3].shape[0]
+                _time_against_plain(name, getattr(pf, name), plain, a, kw,
+                                    f"{a[3].shape[0]} rows")
+        done[name] = len(calls)
+        calls.clear()
+    return done
 
 
 def _stage1_index(fr, names, k, w, timer):
@@ -1523,9 +1703,12 @@ def _stage1_index(fr, names, k, w, timer):
     return {"card_ms": ms, "host_ms": host_ms}
 
 
-def _stage1_prefilter(fr, bins, name, timer):
-    """search_stage(jobs=1) with the prefilter forced on against the host
-    route: seeds.bed byte-identical."""
+def _stage1_whole_job(fr, bins, name, timer):
+    """search_stage(jobs=1), the whole-job path, on the card with the
+    prefilter forced on and then with the roll engine forced on, each
+    against the host route: seeds.bed byte-identical.  The prefilter
+    run's window-ideal calls are checked against their plain versions
+    afterwards."""
     from sedef_tpu_torch.config import DEFAULT
     from sedef_tpu_torch.models import pipeline as pl
     from sedef_tpu_torch.models import seeder
@@ -1535,35 +1718,63 @@ def _stage1_prefilter(fr, bins, name, timer):
         for c in b:
             cache.get(c, False)
             cache.get(c, True)
-    old = seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS
-    seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS = True, 0
-    prefilter.reset_stats()
-    try:
-        with timer:
-            t0 = time.perf_counter()
-            dev = pl.search_stage(fr, bins, DEFAULT, use_device="cuda",
-                                  jobs=1, cache=cache)
-            wall_dev = time.perf_counter() - t0
-    finally:
-        seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS = old
-    stats = dict(prefilter.STATS)
     t0 = time.perf_counter()
     host = pl.search_stage(fr, bins, DEFAULT, use_device=False, jobs=1,
                            cache=cache)
     wall_host = time.perf_counter() - t0
-    if "\n".join(dev) != "\n".join(host) or not host:
-        raise AssertionError(f"{name}: prefiltered seeds.bed != host")
-    if not stats["intervals"]:
-        raise AssertionError(f"{name}: the prefilter ran on no interval")
-    log(f"[stage1] prefilter {name} (search_stage jobs=1, forced on): "
-        f"{stats['intervals']} intervals planned, {stats['pruned_a']} "
-        f"pruned in phase A, {stats['pruned_b']} in phase B, "
-        f"{stats['rows']} composition rows, device {stats['device_ms']:.3f}"
-        f" ms from dispatch to collect (CUDA events, summed over the pairs: "
-        f"their windows overlap in the two-phase loop); stage-1 wall "
-        f"{wall_dev:.3f} s on the card against {wall_host:.3f} s on the "
-        f"host; {len(host)} seeds, seeds.bed = host route's")
-    return dict(stats, wall_card_s=wall_dev, wall_host_s=wall_host)
+    if not host:
+        raise AssertionError(f"{name}: the host route found no seed")
+    old = (seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS,
+           seeder.ROLL_DEVICE_MIN)
+    out = {"wall_host_s": wall_host, "seeds": len(host)}
+    for mode in ("prefilter", "roll"):
+        if mode == "prefilter":
+            seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS = True, 0
+            expect = ("_span_intersections", "_composition_ideals")
+        else:
+            seeder.ROLL_DEVICE_MIN = 0
+            expect = ("_roll_batch",)
+        prefilter.reset_stats()
+        try:
+            with _Stage1Path(f"{name} whole-job {mode}", expect) as path, \
+                    timer:
+                t0 = time.perf_counter()
+                dev = pl.search_stage(fr, bins, DEFAULT, use_device="cuda",
+                                      jobs=1, cache=cache)
+                wall_dev = time.perf_counter() - t0
+        finally:
+            (seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS,
+             seeder.ROLL_DEVICE_MIN) = old
+        if "\n".join(dev) != "\n".join(host):
+            raise AssertionError(f"{name}: seeds.bed with the {mode} "
+                                 f"forced on != host route's")
+        stats = dict(prefilter.STATS)
+        if mode == "prefilter":
+            if not stats["intervals"]:
+                raise AssertionError(f"{name}: the prefilter ran on no "
+                                     f"interval")
+            checked = _check_ideal_calls(timer)
+            log(f"[stage1] prefilter {name} (search_stage jobs=1, forced "
+                f"on): {stats['intervals']} intervals planned, "
+                f"{stats['pruned_a']} pruned in phase A, {stats['pruned_b']}"
+                f" in phase B, {stats['rows']} composition rows, device "
+                f"{stats['device_ms']:.3f} ms from dispatch to collect (CUDA "
+                f"events, summed over the pairs: their windows overlap in "
+                f"the two-phase loop); stage-1 wall {wall_dev:.3f} s on the "
+                f"card against {wall_host:.3f} s on the host; {len(host)} "
+                f"seeds, seeds.bed = host route's; kernel launches "
+                f"{path.counts}, every call's output = its plain version's "
+                f"({checked})")
+            out["prefilter"] = dict(stats, wall_card_s=wall_dev,
+                                    launches=path.counts)
+        else:
+            log(f"[stage1] roll engine {name} (search_stage jobs=1, forced "
+                f"on: every pair's plan through the roll path): stage-1 wall "
+                f"{wall_dev:.3f} s on the card against {wall_host:.3f} s on "
+                f"the host; seeds.bed = host route's; kernel launches "
+                f"{path.counts}")
+            out["roll"] = {"wall_card_s": wall_dev, "launches": path.counts}
+    return out
 
 
 def _stage1_gates(genomes, host, tmp):
@@ -1595,138 +1806,251 @@ def _stage1_gates(genomes, host, tmp):
             "wall_s": wall, "intervals": stats["intervals"]}
 
 
-def _stage1_roll(fr, name, k, w, timer):
-    """The roll engine forced on for the first ROLL_CUT_BP of ``name``
-    against itself, forward and reverse complement: seeds = the host
-    route's; RollEngine.run on the card = on the CPU for one full batch;
-    a full batch of the 4,096 class besides."""
+def _roll_edge_rows(k, w):
+    """The roll engine's edge rows, as batch-function columns on a
+    soft-masked pair with N runs in both sequences (HAS_N keys): the
+    pair's plan rows, an empty query window in each T class, a window of
+    more than SQ keys, rows past the 512 class, into the 4,096 class and
+    past the ladder."""
+    import numpy as np
+
+    from sedef_tpu_torch.config import DEFAULT
+    from sedef_tpu_torch.native import lib as native
+    from sedef_tpu_torch.ops.dna import PackedSeq
+    from sedef_tpu_torch.ops.index import MinimizerIndex
+    rng = np.random.default_rng(9)
+
+    def rand(n, chars="ACGTacgt"):
+        return "".join(rng.choice(list(chars), n))
+
+    base = rand(1800)
+    mut = "".join(rand(1) if rng.random() < 0.1 else ch for ch in base)
+    q = rand(300) + base + "N" * 30 + base[:400]
+    r = rand(500) + mut + "N" * 30 + mut[:400] + rand(4800)
+    qh = MinimizerIndex(PackedSeq("q", q), k, w)
+    rh = MinimizerIndex(PackedSeq("r", r), k, w)
+    win, iv = native.search_plan(qh, rh, False, DEFAULT)
+    woff = np.repeat(np.arange(len(win)), win[:, 3])
+    cols = [win[woff, 1], win[woff, 2], iv[:, 0], iv[:, 2], iv[:, 3],
+            iv[:, 4], iv[:, 5]]
+    rows = [[int(c[i]) for c in cols] for i in range(len(cols[0]))]
+    first = rows[0]
+    extra = [[*first[:1], first[0], *first[2:5], n, first[6]]
+             for n in (300, 3000)]
+    extra.append([first[0], first[0] + 165, *first[2:]])
+    extra += [[*first[:5], n, first[6]] for n in (600, 4000, 5000)]
+    return qh, rh, [np.asarray(c, np.int32) for c in zip(*(rows + extra))]
+
+
+def _roll_kernel_checks(qh, seq_len, k, w):
+    """The roll kernel against its plain version on the same CUDA tensors:
+    a full batch (1,024 intervals) of each T class from ``qh``'s self plan
+    (the 512 class also through RollEngine.run on the CPU), and the edge
+    rows at the card's capacities and at a store of 64 entries; the 4,096
+    batch's times go into the summary."""
     import numpy as np
     import torch
 
     from sedef_tpu_torch.config import DEFAULT
-    from sedef_tpu_torch.models import seeder
     from sedef_tpu_torch.native import lib as native
     from sedef_tpu_torch.ops import roll_engine as re_
-    from sedef_tpu_torch.ops.dna import PackedSeq
-    from sedef_tpu_torch.ops.index import MinimizerIndex
     from sedef_tpu_torch.ops.stat_model import relaxed_jaccard_estimate
-    seq = fr.get_sequence(name)[:ROLL_CUT_BP]
-    qh = MinimizerIndex(PackedSeq(name, seq), k, w)
-    rc = MinimizerIndex(PackedSeq(name, seq, is_rc=True), k, w)
-    out = {"cut_bp": ROLL_CUT_BP, "pairs": []}
-    old = seeder.ROLL_DEVICE_MIN
-    for rh, same in ((qh, True), (rc, False)):
-        plan = native.search_plan(qh, rh, same, DEFAULT)
-        steps = plan[1][:, 4]
-        classes = {T: int(sum(re_._t_class(int(s)) == T for s in steps))
-                   for T in (*re_.T_PAD_LADDER, 0)}
-        t0 = time.perf_counter()
-        host = seeder.initial_search(qh, rh, same, DEFAULT,
-                                     use_device=False)
-        wall_host = time.perf_counter() - t0
-        seeder.ROLL_DEVICE_MIN = 0
-        try:
-            with timer:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = seeder._device_roll_results(qh, rh, plan, DEFAULT,
-                                                  "cuda")
-                wall_roll = time.perf_counter() - t0
-                dev = seeder.initial_search(qh, rh, same, DEFAULT,
-                                            use_device="cuda")
-        finally:
-            seeder.ROLL_DEVICE_MIN = old
-        if [h.to_bed() for h in dev] != [h.to_bed() for h in host]:
-            raise AssertionError(f"roll engine {name} rc={rh.seq.is_rc}: "
-                                 f"seeds != host route's")
-        rolled = int(steps[res[2]].sum())
-        pair = {"rc": rh.seq.is_rc, "intervals": len(steps),
-                "classes": classes, "ok": int(res[2].sum()),
-                "steps_rolled": rolled, "roll_wall_s": wall_roll,
-                "steps_per_s": rolled / wall_roll,
-                "host_search_wall_s": wall_host,
-                "host_planned_steps_per_s": int(steps.sum()) / wall_host}
-        out["pairs"].append(pair)
-        log(f"[stage1] roll engine {name}[:{ROLL_CUT_BP}] (cut to keep "
-            f"the phase inside the time limit) vs "
-            f"{'its reverse complement' if rh.seq.is_rc else 'itself'}: "
-            f"{len(steps)} intervals (T classes {classes}), {pair['ok']} "
-            f"rolled on the card ({rolled} steps in {wall_roll:.3f} s = "
-            f"{pair['steps_per_s']:.0f} steps/s); the host's whole native "
-            f"search {wall_host:.3f} s ({pair['host_planned_steps_per_s']:.0f}"
-            f" planned steps/s); seeds = host route's")
-
-    # one full batch of each T class, on the card against the CPU
+    lut = np.array([relaxed_jaccard_estimate(s, k, DEFAULT)
+                    for s in range(161)], np.int32)
+    lut_d = torch.from_numpy(lut).cuda()
+    out = {}
     win, iv = native.search_plan(qh, qh, True, DEFAULT)
     woff = np.repeat(np.arange(len(win)), win[:, 3])
-    cols = [win[woff, 1], win[woff, 2], iv[:, 0], iv[:, 2], iv[:, 3],
-            iv[:, 4], iv[:, 5]]
-    cols = [np.asarray(c, np.int32) for c in cols]
+    cols = [np.asarray(c, np.int32) for c in (
+        win[woff, 1], win[woff, 2], iv[:, 0], iv[:, 2], iv[:, 3], iv[:, 4],
+        iv[:, 5])]
     # the plan's intervals repeated to fill a batch, and the 4,096 class:
     # the same windows rolled over 4,000 steps
     small = np.resize(np.nonzero(cols[5] <= re_.T_PAD_LADDER[0])[0],
                       re_.DEFAULT_BATCH)
-    long_ = np.resize(np.nonzero(cols[6] + 4000 < len(seq))[0],
+    long_ = np.resize(np.nonzero(cols[6] + 4000 < seq_len)[0],
                       re_.DEFAULT_BATCH)
     cols_long = [c[long_].copy() for c in cols]
     cols_long[5][:] = 4000
-    lut = np.array([relaxed_jaccard_estimate(s, k, DEFAULT)
-                    for s in range(161)], np.int32)
+    dk, dl = qh.device_arrays("cuda")
     eng = re_.RollEngine(k, lut)
-    for label, cc, check_cpu in (("512", [c[small] for c in cols], True),
-                                 ("4096", cols_long, False)):
-        args = (len(qh.keys), len(qh.seq), *cc)
-        dk, dl = qh.device_arrays("cuda")
-        with timer:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = eng.run(dk, dk, dl, *args)
-            wall = time.perf_counter() - t0
+    for label, cc, T in (("512", [c[small] for c in cols], 512),
+                         ("4096", cols_long, 4096)):
+        args = (dk, dl, len(qh.keys), lut_d, dk,
+                *[torch.from_numpy(c).cuda() for c in cc])
+        kw = dict(W=re_.DEFAULT_W, SQ=re_.DEFAULT_SQ,
+                  INIT_PAD=re_.DEFAULT_INIT_PAD, T_PAD=T, n_shift=2 * k)
+        k_ms, p_ms = _time_against_plain(
+            "_roll_batch", re_._roll_batch, re_._roll_batch_torch, args, kw,
+            f"B={len(cc[0])},W={re_.DEFAULT_W},T_PAD={T}")
         msg = ""
-        if check_cpu:
+        if label == "512":
+            run_args = (len(qh.keys), len(qh.seq), *cc)
+            got = eng.run(dk, dk, dl, *run_args)
             ck, cl = qh.device_arrays("cpu")
-            cpu = eng.run(ck, ck, cl, *args)
+            cpu = eng.run(ck, ck, cl, *run_args)
             if any(not np.array_equal(a, b) for a, b in zip(got, cpu)):
                 raise AssertionError("RollEngine.run on the card != CPU")
-            msg = "; (best_j, best_steps, ok) = the CPU run's"
-        rolled = int(cc[5][got[2]].sum())
-        out[f"batch_{label}"] = {"ms": wall * 1e3, "ok": int(got[2].sum()),
-                                 "steps_per_s": rolled / wall}
-        log(f"[stage1] roll engine, one batch of {len(cc[0])} x W "
+            msg = "; RollEngine.run on the card = on the CPU"
+        ok = re_._roll_batch(*args, **kw)[2].cpu().numpy()
+        rolled = int(cc[5][ok].sum())
+        out[f"batch_{label}"] = {"ms": k_ms, "plain_ms": p_ms,
+                                 "ok": int(ok.sum()),
+                                 "steps_per_s": rolled / k_ms * 1e3}
+        log(f"[stage1] roll kernel, one batch of {len(cc[0])} x W "
             f"{re_.DEFAULT_W} in the {label} class (the self plan's "
-            f"intervals, repeated): {wall * 1e3:.3f} ms, "
-            f"{int(got[2].sum())} ok, {rolled / wall:.0f} steps/s{msg}")
+            f"intervals, repeated): {k_ms:.3f} ms (CUDA events, median of "
+            f"3) against the plain version's {p_ms:.3f} ms on the card, "
+            f"outputs equal; {int(ok.sum())} ok, "
+            f"{rolled / k_ms * 1e3:.0f} steps/s{msg}")
+    # the edge rows
+    eq, er, ec = _roll_edge_rows(k, w)
+    eqk, _ = eq.device_arrays("cuda")
+    erk, erl = er.device_arrays("cuda")
+    eargs = (erk, erl, len(er.keys), lut_d, eqk,
+             *[torch.from_numpy(c).cuda() for c in ec])
+    cases = []
+    for T, W, SQ in ((512, 512, 160), (4096, 512, 160), (4096, 64, 48),
+                     (512, 64, 16)):
+        kw = dict(W=W, SQ=SQ, INIT_PAD=re_.DEFAULT_INIT_PAD, T_PAD=T,
+                  n_shift=2 * k)
+        got = re_._roll_batch(*eargs, **kw)
+        want = re_._roll_batch_torch(*eargs, **kw)
+        _compare("_roll_batch", got, want)
+        cases.append(f"T {T} W {W} SQ {SQ}: "
+                     f"{int(want[2].sum())}/{len(ec[0])} ok")
+    log(f"[stage1] roll kernel on {len(ec[0])} edge rows (plan rows of a "
+        f"soft-masked pair with N runs, empty query windows, a window past "
+        f"SQ, rows past 512 / into 4,096 / past the ladder) = the plain "
+        f"version: " + "; ".join(cases))
+    out["edge"] = cases
     return out
 
 
-def phase_stage1(genomes, host, tmp):
+def _stage1_roll(fa, timer, k, w):
+    """The roll engine forced on for one whole chromosome of the dense
+    genome against itself and its reverse complement: seeds = the host
+    route's."""
+    import torch
+
+    from sedef_tpu_torch.config import DEFAULT
+    from sedef_tpu_torch.io.fasta import FastaReference
+    from sedef_tpu_torch.models import seeder
+    from sedef_tpu_torch.ops import roll_engine as re_
+    from sedef_tpu_torch.ops.dna import PackedSeq
+    from sedef_tpu_torch.ops.index import MinimizerIndex
+    fr = FastaReference(fa)
+    name = fr.order[0]
+    seq = fr.get_sequence(name)
+    qh = MinimizerIndex(PackedSeq(name, seq), k, w)
+    rc = MinimizerIndex(PackedSeq(name, seq, is_rc=True), k, w)
+    out = {"chromosome": name, "bp": len(seq), "pairs": []}
+    old = seeder.ROLL_DEVICE_MIN
+    real = seeder._device_roll_results
+    for rh, same in ((qh, True), (rc, False)):
+        t0 = time.perf_counter()
+        host = seeder.initial_search(qh, rh, same, DEFAULT,
+                                     use_device=False)
+        wall_host = time.perf_counter() - t0
+        seen = []
+
+        def spy(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = real(*a)
+            seen.append((a[2], res, time.perf_counter() - t))
+            return res
+
+        seeder.ROLL_DEVICE_MIN = 0
+        seeder._device_roll_results = spy
+        try:
+            with _Stage1Path(f"{name} roll engine", ("_roll_batch",)) \
+                    as path, timer:
+                t0 = time.perf_counter()
+                dev = seeder.initial_search(qh, rh, same, DEFAULT,
+                                            use_device="cuda")
+                wall_dev = time.perf_counter() - t0
+        finally:
+            seeder.ROLL_DEVICE_MIN = old
+            seeder._device_roll_results = real
+        if [h.to_bed() for h in dev] != [h.to_bed() for h in host]:
+            raise AssertionError(f"roll engine {name} rc={rh.seq.is_rc}: "
+                                 f"seeds != host route's")
+        if len(seen) != 1:
+            raise AssertionError(f"roll engine {name}: {len(seen)} device "
+                                 f"rolls, not one")
+        plan, res, wall_roll = seen[0]
+        steps = plan[1][:, 4]
+        classes = {T: int(sum(re_._t_class(int(s)) == T for s in steps))
+                   for T in (*re_.T_PAD_LADDER, 0)}
+        rolled = int(steps[res[2]].sum())
+        pair = {"rc": rh.seq.is_rc, "intervals": len(steps),
+                "classes": classes, "ok": int(res[2].sum()),
+                "steps_rolled": rolled, "roll_wall_s": wall_roll,
+                "steps_per_s": rolled / wall_roll, "seeds": len(host),
+                "search_wall_card_s": wall_dev,
+                "search_wall_host_s": wall_host,
+                "launches": path.counts["_roll_batch"]}
+        out["pairs"].append(pair)
+        log(f"[stage1] roll engine {name} ({len(seq)} bp, the dense "
+            f"genome's first chromosome) vs "
+            f"{'its reverse complement' if rh.seq.is_rc else 'itself'}: "
+            f"{len(steps)} intervals (T classes {classes}), {pair['ok']} "
+            f"rolled on the card in {pair['launches']} launches ({rolled} "
+            f"steps in {wall_roll:.3f} s with the copies = "
+            f"{pair['steps_per_s']:.0f} steps/s); initial_search "
+            f"{wall_dev:.3f} s with the roll on the card against "
+            f"{wall_host:.3f} s on the host; {len(host)} seeds = host "
+            f"route's")
+    return out
+
+
+def phase_stage1(genomes, host, tmp, dense_fa):
     """Stage 1's device engines on the main path's genomes, each held
-    against the host route (``[stage1]`` lines and one JSON line)."""
+    against the host route, and their kernels against their plain
+    versions (``[stage1]`` lines and one JSON line)."""
     from sedef_tpu_torch.config import DEFAULT
     from sedef_tpu_torch.io.fasta import FastaReference, generate_translation
+    from sedef_tpu_torch.ops.dna import PackedSeq
+    from sedef_tpu_torch.ops.index import MinimizerIndex
     t_phase = time.perf_counter()
     k, w = DEFAULT.search.kmer_size, DEFAULT.search.window_size
-    timer = OpTimer()
+    timer = OpTimer(record=("_span_intersections", "_composition_ideals"))
     summary = {}
     fr = FastaReference(genomes["e2e-20M"][0])
     bins = generate_translation(fr)
     names = [c for b in bins for c in b]
     summary["index"] = _stage1_index(fr, names, k, w, timer)
-    summary["prefilter"] = {"e2e-20M": _stage1_prefilter(fr, bins, "e2e-20M",
-                                                         timer)}
-    ops = timer.read()  # the e2e-20M whole-job run's ops
+    summary["e2e-20M"] = _stage1_whole_job(fr, bins, "e2e-20M", timer)
+    ops = timer.read()  # the e2e-20M whole-job runs' ops
     frm = FastaReference(genomes["mosaic-20M"][0])
-    summary["prefilter"]["mosaic-20M"] = _stage1_prefilter(
-        frm, generate_translation(frm), "mosaic-20M", OpTimer())
+    summary["mosaic-20M"] = _stage1_whole_job(
+        frm, generate_translation(frm), "mosaic-20M",
+        OpTimer(record=("_span_intersections", "_composition_ideals")))
     summary["gates"] = _stage1_gates(genomes, host, tmp)
     roll_timer = OpTimer()
-    summary["roll"] = _stage1_roll(fr, names[0], k, w, roll_timer)
-    ops.update(roll_timer.read())
+    summary["roll"] = _stage1_roll(dense_fa, roll_timer, k, w)
+    ops["dense roll"] = roll_timer.read().get("_roll_batch")
+    seq = fr.get_sequence(names[0])
+    summary["roll_kernel"] = _roll_kernel_checks(
+        MinimizerIndex(PackedSeq(names[0], seq), k, w), len(seq), k, w)
     summary["ops"] = ops
     for name, o in ops.items():
         log(f"[stage1] op {name}: {o['launches']} calls, {o['ms']:.3f} ms "
             f"(CUDA events), bound {o['bound_ms']:.4f} ms by "
             f"{o['bound_by']}, largest rows shape {o['shape']}")
+    missing = [n for n, paths in STAGE1_PATHS.items() if not paths]
+    if missing:
+        raise AssertionError(f"stage 1's paths launched no {missing}")
+    for name, rec in STAGE1.items():
+        log(f"[stage1] kernel {name} ({STAGE1_KERNELS[name][0]}): "
+            f"{rec['launches']} launches on {STAGE1_PATHS[name]}; "
+            f"{rec['compared']} outputs = the plain version's (max abs err "
+            f"{rec['max_abs_err']}); {rec['ms']:.3f} ms against plain "
+            f"{rec['plain_ms']:.3f} ms at {rec['at']}, bound "
+            f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} (the work "
+            f"these inputs need; the op lines' formula, the plain "
+            f"version's row passes: {rec['bound_formula_ms']:.4f} ms)")
     summary["phase_s"] = time.perf_counter() - t_phase
     log(f"[stage1] phase took {summary['phase_s']:.1f}s")
     log("[stage1] " + json.dumps(summary, default=str))
@@ -1831,22 +2155,29 @@ def _launch_groups(al) -> str:
             getattr(al, "launch_groups", {}).items()))
 
 
-def phase_dense(tmp, mbp, profile=False):
-    """The dense recipe at ``mbp`` Mbp through ``run_pipeline`` on the card
-    route at the calibrated floor, each kernel launch timed by CUDA events
-    (with ``profile``: traced by torch.profiler's CUDA activity instead),
-    then on the host route: the three beds byte-equal.  Returns the card
-    run's launches, per wrapper."""
-    import torch
-
+def dense_genome(tmp, mbp):
+    """The dense recipe's genome at ``mbp`` Mbp on DENSE_CHROMS
+    chromosomes: (FASTA path, work directory)."""
     from sedef_tpu_torch.tools import rehearsal
-    t_phase = time.perf_counter()
     work = os.path.join(tmp, "dense")
     t0 = time.perf_counter()
     fa, planted = rehearsal.generate("dense", mbp, work, DENSE_CHROMS)
     spec = rehearsal.spec_of("dense", mbp, DENSE_CHROMS)
     log(f"[dense] {spec}: {planted} planted SDs, made in "
         f"{time.perf_counter() - t0:.1f}s")
+    return fa, work
+
+
+def phase_dense(fa, work, profile=False):
+    """The dense genome through ``run_pipeline`` on the card route at the
+    calibrated floor, each kernel launch timed by CUDA events (with
+    ``profile``: traced by torch.profiler's CUDA activity instead), then
+    on the host route: the three beds byte-equal.  Returns the card run's
+    launches, per wrapper."""
+    import torch
+
+    from sedef_tpu_torch.tools import rehearsal
+    t_phase = time.perf_counter()
     al = _aligner("card", None)
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
@@ -2015,8 +2346,9 @@ def main() -> int:
         log(f"[main] phase took {time.perf_counter() - t0:.1f}s")
         if not args.main_only:
             phase_entry_points(genomes, host, tmp)
-            phase_stage1(genomes, host, tmp)
-            dense_launches = phase_dense(tmp, args.dense_mbp, args.profile)
+            dense_fa, dense_work = dense_genome(tmp, args.dense_mbp)
+            phase_stage1(genomes, host, tmp, dense_fa)
+            dense_launches = phase_dense(dense_fa, dense_work, args.profile)
             phase_accuracy()
         if args.spread:
             phase_spread(genomes, tmp, args.spread)
@@ -2033,6 +2365,14 @@ def main() -> int:
                 "calibration_launches": calibration[name],
                 "dense_launches": dense_launches[name],
                 **summary[name]} for name, (src, ref) in KERNELS.items()]
+    # stage 1's: launches on stage 1's paths ([stage1] lines)
+    kernels += [{"name": name, "route": "cuda", "source": src,
+                 "replaces": ref, **{key: STAGE1[name][key] for key in (
+                     "launches", "max_abs_err", "ms", "plain_ms",
+                     "bound_ms", "bound_by", "library_ms", "at",
+                     "bound_formula_ms")},
+                 "paths": STAGE1_PATHS[name]}
+                for name, (src, ref) in STAGE1_KERNELS.items()]
     log(f"[smoke] took {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

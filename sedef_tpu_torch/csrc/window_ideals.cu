@@ -1,0 +1,248 @@
+// The roll prefilter's window ideals: for each row, the keys of a
+// contiguous minimizer range [a, b) of the reference (HAS_N keys dropped)
+// against a sorted distinct query row, counting the shared keys whose rank
+// in the distinct union is below s.
+//
+// Replaces two jit programs of sedef_tpu/ops/prefilter.py, one kernel for
+// both (their plain PyTorch versions are the *_torch functions of
+// ops/prefilter.py, which call merge_rank_intersection):
+//   _composition_ideals (:118)   width RW (192), the query row gathered by
+//                                iv_id, s the row's rank limit
+//   _span_intersections (:92)    width SA (1,024), the query row aligned
+//                                with the row, s = SQ + SA (no limit)
+// A row whose range is wider than the width gets INF32 (no bound).  The
+// count is merge_rank_intersection's (ops/jaccard_batch.py:33-69):
+// distinct union ranks, duplicate ref keys collapsed, INF never counted.
+//
+// What bounds it on the H100: the sort of each row's keys (n log2 n
+// compare-exchanges over up to the width) and the ranks; the bytes are a
+// row's keys and its query row (~1.4 KB at RW 192), read once.  The plain
+// version materialises an (N, SQ + width) tagged concat and sorts it: 184
+// MB of int32 at 131,072 composition rows.
+//
+// What the design does about it: the concat never exists.  A row's keys
+// are loaded coalesced into shared memory and sorted there by a bitonic
+// sort over the next power of two above the range (not the width: a
+// composition row holds ~80 keys of its 192); the query row goes beside
+// them.  Each distinct ref key then finds its place in the query row by a
+// binary search, which gives the query keys below it and whether it is
+// shared; an exclusive scan over the ref-only distinct keys gives the rest
+// of its union rank, and the shared keys of rank < s are summed.  A warp
+// per row at width <= 256 (four rows a block), a block of 256 threads per
+// row up to 1,024, 512 up to 4,096.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int32_t INF32 = 0x7fffffff;
+constexpr unsigned FULL = 0xffffffffu;
+
+struct IdealArgs {
+  const int32_t* r_keys;
+  const int32_t* qk;     // (n_qrows, SQ) sorted distinct, INF-padded
+  const int32_t* s;      // (n_qrows,) rank limits, or null: s_const
+  const int32_t* a;      // (N,) range starts
+  const int32_t* b;      // (N,) range ends
+  const int32_t* iv;     // (N,) query row of each row, or null: the row
+  int32_t* out;          // (N,)
+  int N, n_rk, SQ, width, s_const, n_shift;
+};
+
+template <int THREADS>
+__device__ __forceinline__ void group_sync() {
+  if (THREADS == 32)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
+// the group's sum of v (every thread of the group gets it); red holds 32
+// ints of shared memory when the group is a whole block
+template <int THREADS>
+__device__ int group_sum(int v, int tid, int* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  if (THREADS == 32) return v;
+  if ((tid & 31) == 0) red[tid >> 5] = v;
+  __syncthreads();
+  int t = 0;
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) t += red[w];
+  __syncthreads();
+  return t;
+}
+
+// the group's exclusive prefix sum of v, in thread order
+template <int THREADS>
+__device__ int group_exclusive(int v, int tid, int* red) {
+  const int lane = tid & 31;
+  int inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(FULL, inc, o);
+    if (lane >= o) inc += u;
+  }
+  if (THREADS == 32) return inc - v;
+  if (lane == 31) red[tid >> 5] = inc;
+  __syncthreads();
+  int before = 0;
+  for (int w = 0; w < (tid >> 5); ++w) before += red[w];
+  __syncthreads();
+  return before + inc - v;
+}
+
+// ascending bitonic sort of x[0, n), n a power of two, by the group
+template <int THREADS>
+__device__ void group_bitonic(int32_t* x, int n, int tid) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < n / 2; i += THREADS) {
+        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+        const int hi = lo + j;
+        const int32_t u = x[lo], v = x[hi];
+        if ((u > v) == ((lo & k) == 0)) {
+          x[lo] = v;
+          x[hi] = u;
+        }
+      }
+      group_sync<THREADS>();
+    }
+  }
+}
+
+// PAD: a power of two >= the width; THREADS a row (32: a warp, and
+// ROWS = blockDim / 32 rows a block; else the block is one row)
+template <int PAD, int THREADS>
+__global__ void window_ideals_kernel(IdealArgs p) {
+  constexpr int E = PAD / THREADS;  // sorted entries a thread scans
+  extern __shared__ int32_t smem[];
+  __shared__ int red[32];
+  const int tid = threadIdx.x % THREADS;
+  const int g = threadIdx.x / THREADS;
+  const long row = static_cast<long>(blockIdx.x) * (blockDim.x / THREADS) + g;
+  if (row >= p.N) return;  // a whole warp, or a whole one-row block
+  int32_t* keys = smem + g * (PAD + p.SQ);
+  int32_t* q = keys + PAD;
+
+  const int a = p.a[row], b = p.b[row];
+  if (b - a > p.width) {
+    if (tid == 0) p.out[row] = INF32;
+    return;
+  }
+  const int n = b - a > 0 ? b - a : 0;
+  int n2 = 2;
+  while (n2 < n) n2 <<= 1;
+  for (int j = tid; j < n2; j += THREADS) {
+    int32_t v = INF32;
+    if (j < n) {
+      const int i = a + j < p.n_rk ? a + j : p.n_rk - 1;
+      v = p.r_keys[i < 0 ? 0 : i];
+      // HAS_N ref keys are never added to the sketch (sliding.cc:158-168)
+      if ((v >> p.n_shift) == 2) v = INF32;
+    }
+    keys[j] = v;
+  }
+  const long qrow = p.iv ? p.iv[row] : row;
+  const int32_t* qsrc = p.qk + qrow * p.SQ;
+  for (int j = tid; j < p.SQ; j += THREADS) q[j] = qsrc[j];
+  const int s = p.s ? p.s[qrow] : p.s_const;
+  group_sync<THREADS>();
+  group_bitonic<THREADS>(keys, n2, tid);
+
+  // entries [tid * E, tid * E + E) of the sorted keys: for each distinct
+  // key, the query keys below it (lq) and whether the query holds it
+  int lq[E];
+  unsigned shared_mask = 0;
+  int ref_only = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int j = tid * E + e;
+    lq[e] = 0;
+    if (j >= n2) continue;
+    const int32_t k = keys[j];
+    if (k == INF32 || (j > 0 && keys[j - 1] == k)) continue;
+    int lo = 0, hi = p.SQ;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (q[mid] < k)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    lq[e] = lo;
+    if (lo < p.SQ && q[lo] == k)
+      shared_mask |= 1u << e;
+    else
+      ref_only += 1;
+  }
+  // union rank of a shared key = query keys below it + ref-only distinct
+  // keys below it
+  int before = group_exclusive<THREADS>(ref_only, tid, red);
+  int count = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int j = tid * E + e;
+    if (j >= n2) continue;
+    const int32_t k = keys[j];
+    if (k == INF32 || (j > 0 && keys[j - 1] == k)) continue;
+    if (shared_mask & (1u << e))
+      count += lq[e] + before < s;
+    else
+      before += 1;
+  }
+  count = group_sum<THREADS>(count, tid, red);
+  if (tid == 0) p.out[row] = count;
+}
+
+template <int PAD, int THREADS>
+int launch(const IdealArgs& p, cudaStream_t stream) {
+  const int rows = THREADS == 32 ? 4 : 1;
+  const size_t smem = sizeof(int32_t) * rows * (size_t)(PAD + p.SQ);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        window_ideals_kernel<PAD, THREADS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long blocks = (p.N + rows - 1) / rows;
+  window_ideals_kernel<PAD, THREADS>
+      <<<static_cast<unsigned>(blocks), rows * THREADS, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// N rows of window ideals.  r_keys (n_rk,) int32; qk (*, SQ) int32 sorted
+// distinct and INF-padded; a, b (N,) int32 each row's [a, b) minimizer
+// range; iv (N,) int32 each row's query row, or null for row i's own; s
+// (*,) int32 the query rows' rank limits, or null for s_const.  Writes out
+// (N,) int32: the count, or INF32 where b - a > width (width <= 4,096).
+// Launches on ``stream`` without synchronising; returns a CUDA error code.
+int sedef_window_ideals(const void* r_keys, const void* qk, const void* s,
+                        const void* a, const void* b, const void* iv,
+                        void* out, int N, int n_rk, int SQ, int width,
+                        int s_const, int n_shift, void* stream) {
+  if (n_rk < 1 || SQ < 1 || width < 1 || width > 4096 || n_shift < 0 ||
+      n_shift > 30)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 0) return static_cast<int>(cudaGetLastError());
+  const IdealArgs p = {static_cast<const int32_t*>(r_keys),
+                       static_cast<const int32_t*>(qk),
+                       static_cast<const int32_t*>(s),
+                       static_cast<const int32_t*>(a),
+                       static_cast<const int32_t*>(b),
+                       static_cast<const int32_t*>(iv),
+                       static_cast<int32_t*>(out),
+                       N, n_rk, SQ, width, s_const, n_shift};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (width <= 256) return launch<256, 32>(p, st);
+  if (width <= 1024) return launch<1024, 256>(p, st);
+  return launch<4096, 512>(p, st);
+}
+
+}  // extern "C"

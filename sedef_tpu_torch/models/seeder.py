@@ -444,8 +444,8 @@ def search(query_winnow_start: int, query_hash: MinimizerIndex,
 # one host core, 380 s of device rolls against 0.2 s of host rolls on a
 # repeat-rich 20 Mbp workload (the exact replay costs O(W) vector lanes a
 # step against the scalar engine's amortized O(1) ordered-map ops).  This
-# package's engine launches ~60 tensor ops a step (ops/roll_engine.py);
-# its rate on the card is in PERF.md.  Enable with
+# package's engine rolls a batch in one kernel launch on a card
+# (csrc/roll_engine.cu); its rate there is in PERF.md.  Enable with
 # SEDEF_ROLL_DEVICE_MIN_STEPS.
 ROLL_DEVICE_MIN = int(__import__("os").environ.get(
     "SEDEF_ROLL_DEVICE_MIN_STEPS", 1 << 60))

@@ -51,7 +51,11 @@ re-verifies the bound against the scalar SlidingJaccard oracle.
 
 The device work is queued on the current stream of the device the keys
 live on; ``PendingPrefilter.collect()`` is where the host first waits for
-it.  A device error raises: no interval silently goes to the host.
+it.  A device error raises: no interval silently goes to the host.  On a
+card both row evaluations (phase A's span rows, phase B's composition
+rows) are launches of one kernel, ``csrc/window_ideals.cu``, which sorts
+each row in shared memory and never builds the plain versions' (rows,
+SQ + width) concat; the query sketches stay tensor code.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ import numpy as np
 import torch
 
 from .jaccard_batch import merge_rank_intersection
+from .wavefront import _check, _kernels, _launch, _ptr, _same_device
 
 INF32 = 2**31 - 1
 
@@ -123,8 +128,10 @@ def _window_keys(r_keys, a, b, width: int, n_shift: int):
     return torch.sort(keys_w, dim=1).values
 
 
-def _span_intersections(r_keys, qk_all, sa, sb, SA: int, n_shift: int):
-    """Phase A: plain distinct-intersection bound per interval.
+def _span_intersections_torch(r_keys, qk_all, sa, sb, SA: int,
+                              n_shift: int):
+    """``_span_intersections``'s plain version.  Phase A: plain
+    distinct-intersection bound per interval.
 
     For any window W inside an interval's span, ideal(Q, R_W) <=
     |Q ∩ R_W| <= |Q ∩ R_span| — so one row per INTERVAL (vs one per
@@ -141,9 +148,10 @@ def _span_intersections(r_keys, qk_all, sa, sb, SA: int, n_shift: int):
     return torch.where((sb - sa) > SA, INF32, inter)
 
 
-def _composition_ideals(r_keys, qk_all, s_all, a, b, iv_id,
-                        RW: int, n_shift: int):
-    """Ideal sketch intersection for one batch of composition rows.
+def _composition_ideals_torch(r_keys, qk_all, s_all, a, b, iv_id,
+                              RW: int, n_shift: int):
+    """``_composition_ideals``'s plain version.  Ideal sketch intersection
+    for one batch of composition rows.
 
     a/b (N,) int32: each window's [a, b) minimizer range in locus order
     (computed on the host); iv_id (N,) int32 interval index into
@@ -155,6 +163,71 @@ def _composition_ideals(r_keys, qk_all, s_all, a, b, iv_id,
     # collapse inside the reduction, so no separate dedup pass is needed
     ideal = merge_rank_intersection(qk_all[iv], keys_w, s_all[iv])
     return torch.where((b - a) > RW, INF32, ideal)
+
+
+def _window_ideals(wrapper, r_keys, qk_all, s_all, a, b, iv_id,
+                   width: int, s_const: int, n_shift: int):
+    """One launch of ``csrc/window_ideals.cu`` on the current stream (no
+    synchronisation), counted on ``wrapper``: per row, the shared keys of
+    rank < s between the ref keys [a, b) (HAS_N dropped) and its query
+    row (row iv_id, or the row's own where iv_id is None; s from s_all, or
+    ``s_const`` where s_all is None); INF32 where b - a > width."""
+    named = [("r_keys", r_keys, 1), ("qk_all", qk_all, 2), ("a", a, 1),
+             ("b", b, 1), ("s_all", s_all, 1), ("iv_id", iv_id, 1)]
+    for name, t, nd in named:
+        if t is not None:
+            _check(t, torch.int32, nd, name)
+    dev = _same_device(*[t for _, t, _ in named if t is not None])
+    N = a.shape[0]
+    if b.shape[0] != N or (iv_id is not None and iv_id.shape[0] != N):
+        raise ValueError("a, b and iv_id must have one length")
+    if iv_id is None and qk_all.shape[0] != N:
+        raise ValueError("rows must align with qk_all")
+    if r_keys.shape[0] < 1 or qk_all.shape[1] < 1:
+        raise ValueError("empty ref keys or query rows")
+    if not 1 <= width <= 4096:
+        raise ValueError(f"width {width} is not in [1, 4096]")
+    out = torch.empty(N, dtype=torch.int32, device=dev)
+    if N:
+        _launch(wrapper, dev, _kernels().sedef_window_ideals,
+                r_keys.data_ptr(), qk_all.data_ptr(), _ptr(s_all),
+                a.data_ptr(), b.data_ptr(), _ptr(iv_id), out.data_ptr(), N,
+                r_keys.shape[0], qk_all.shape[1], width, s_const, n_shift)
+    return out
+
+
+def _span_intersections(r_keys, qk_all, sa, sb, SA: int, n_shift: int):
+    """Phase A's span bounds, as ``_span_intersections_torch``: on CUDA
+    tensors one launch of ``csrc/window_ideals.cu`` (a block a row), on CPU
+    tensors the plain version."""
+    dev = _same_device(r_keys, qk_all, sa, sb)
+    if dev.type == "cpu":
+        return _span_intersections_torch(r_keys, qk_all, sa, sb, SA,
+                                         n_shift)
+    # rank condition disabled (s = the row width): plain intersection
+    return _window_ideals(KERNEL_WRAPPERS[0], r_keys, qk_all, None, sa, sb,
+                          None, SA, qk_all.shape[1] + SA, n_shift)
+
+
+def _composition_ideals(r_keys, qk_all, s_all, a, b, iv_id,
+                        RW: int, n_shift: int):
+    """Phase B's composition ideals, as ``_composition_ideals_torch``: on
+    CUDA tensors one launch of ``csrc/window_ideals.cu`` (a warp a row), on
+    CPU tensors the plain version."""
+    dev = _same_device(r_keys, qk_all, s_all, a, b, iv_id)
+    if dev.type == "cpu":
+        return _composition_ideals_torch(r_keys, qk_all, s_all, a, b,
+                                         iv_id, RW, n_shift)
+    return _window_ideals(KERNEL_WRAPPERS[1], r_keys, qk_all, s_all, a, b,
+                          iv_id, RW, 0, n_shift)
+
+
+# the wrappers that launch this module's kernel, with their launch counts;
+# counted through this tuple, so that a caller that wraps the module's
+# functions (chip_smoke.py's op timer) leaves the counts alone
+KERNEL_WRAPPERS = (_span_intersections, _composition_ideals)
+for _w in KERNEL_WRAPPERS:
+    _w.launches = 0
 
 
 def _ragged_arange(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:

@@ -30,9 +30,11 @@ pass encounters the same interval tuple; windows whose candidate set was
 altered by hit-tree dedup fall back to the host roll (see
 models/seeder.py / native sedef_search).
 
-Each roll step is ~60 tensor ops on (batch, W) int32 rows, launched one
-after another from a Python loop; the loop stops after the batch's longest
-interval.  Intervals longer than the last T class roll on the host.
+On a card a batch is one launch of ``csrc/roll_engine.cu`` (a warp per
+interval, every step inside the kernel); ``_roll_batch_torch`` is its plain
+version, ~60 tensor ops on (batch, W) int32 rows a roll step, launched one
+after another from a Python loop, which the CPU runs.  Intervals longer
+than the last T class roll on the host.
 """
 
 from __future__ import annotations
@@ -40,7 +42,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .wavefront import _check, _kernels, _launch, _same_device
+
 INF32 = 2**31 - 1
+INT32_MIN = -2**31
 
 DEFAULT_W = 512
 DEFAULT_SQ = 160
@@ -52,8 +57,15 @@ DEFAULT_BATCH = 1024
 
 
 def _take1(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """a[b, idx[b]] for every row b."""
-    return a.gather(1, idx[:, None].long())[:, 0]
+    """a[b, idx[b]] for every row b, indexed as the reference's
+    ``take_along_axis``: an index in [-W, 0) counts from the row's end
+    (the boundary index of an empty query window is -1, and falls further
+    with every ref key inserted before the boundary), one below -W reads
+    INT32_MIN."""
+    W = a.shape[1]
+    idx = torch.where(idx < 0, idx + W, idx)
+    got = a.gather(1, idx.clamp(min=0)[:, None].long())[:, 0]
+    return torch.where(idx < 0, INT32_MIN, got)
 
 
 def _gather(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -147,11 +159,13 @@ def _vremove(st, h, bit: int, do, col):
     return (store, ln, Bp, inter, ovf)
 
 
-def _roll_batch(r_keys, r_locs, nr: int, limit_lut,
-                q_keys, qws, qwe, t0, rws0, init_cnt, n_steps, re0,
-                W: int, SQ: int, INIT_PAD: int, T_PAD: int, n_shift: int,
-                init_max: int | None = None, steps_max: int | None = None):
-    """One batch of interval rolls.  All interval arrays are (B,) int32
+def _roll_batch_torch(r_keys, r_locs, nr: int, limit_lut,
+                      q_keys, qws, qwe, t0, rws0, init_cnt, n_steps, re0,
+                      W: int, SQ: int, INIT_PAD: int, T_PAD: int,
+                      n_shift: int, init_max: int | None = None,
+                      steps_max: int | None = None):
+    """One batch of interval rolls, as tensor ops (``_roll_batch``'s plain
+    version).  All interval arrays are (B,) int32
     tensors; r_keys/r_locs/q_keys are the minimizer arrays, on the same
     device.  ``init_max`` / ``steps_max`` (the batch's largest init_cnt
     and n_steps, where the caller knows them) end the two loops early:
@@ -226,6 +240,55 @@ def _roll_batch(r_keys, r_locs, nr: int, limit_lut,
         re = re + active
     ok = ~(st[4] | ovf_init | (n_steps > T_PAD))
     return best_j, best_steps, ok
+
+
+def _roll_batch(r_keys, r_locs, nr: int, limit_lut,
+                q_keys, qws, qwe, t0, rws0, init_cnt, n_steps, re0,
+                W: int, SQ: int, INIT_PAD: int, T_PAD: int, n_shift: int,
+                init_max: int | None = None, steps_max: int | None = None):
+    """One batch of interval rolls: (best_j, best_steps, ok), as
+    ``_roll_batch_torch``.  On CUDA tensors one launch of
+    ``csrc/roll_engine.cu`` on the current stream (no synchronisation;
+    ``init_max`` / ``steps_max`` are not needed there: each interval loops
+    to its own counts); on CPU tensors the plain version."""
+    cols = (qws, qwe, t0, rws0, init_cnt, n_steps, re0)
+    arrays = (r_keys, r_locs, q_keys, limit_lut)
+    dev = _same_device(*arrays, *cols)
+    if dev.type == "cpu":
+        return _roll_batch_torch(r_keys, r_locs, nr, limit_lut, q_keys,
+                                 *cols, W=W, SQ=SQ, INIT_PAD=INIT_PAD,
+                                 T_PAD=T_PAD, n_shift=n_shift,
+                                 init_max=init_max, steps_max=steps_max)
+    for name, t in zip(("r_keys", "r_locs", "q_keys", "limit_lut", "qws",
+                        "qwe", "t0", "rws0", "init_cnt", "n_steps", "re0"),
+                       arrays + cols):
+        _check(t, torch.int32, 1, name)
+    B = qws.shape[0]
+    if any(c.shape[0] != B for c in cols):
+        raise ValueError("the plan columns must have one length")
+    if min(t.shape[0] for t in arrays) < 1:
+        raise ValueError("empty minimizer array or limit table")
+    if not 1 <= SQ <= W:
+        raise ValueError(f"the row (W={W}) must hold the query's SQ={SQ}")
+    best_j = torch.empty(B, dtype=torch.int32, device=dev)
+    best_steps = torch.empty(B, dtype=torch.int32, device=dev)
+    ok = torch.empty(B, dtype=torch.bool, device=dev)
+    if B:
+        lib = _kernels()
+        _launch(KERNEL_WRAPPERS[0], dev, lib.sedef_roll_batch,
+                *(t.data_ptr() for t in arrays + cols),
+                best_j.data_ptr(), best_steps.data_ptr(), ok.data_ptr(), B,
+                r_keys.shape[0], r_locs.shape[0], q_keys.shape[0],
+                limit_lut.shape[0], int(nr), W, SQ, INIT_PAD, T_PAD,
+                n_shift)
+    return best_j, best_steps, ok
+
+
+# the wrapper that launches this module's kernel, with its launch count;
+# counted through this tuple, so that a caller that wraps the module's
+# ``_roll_batch`` (chip_smoke.py's op timer) leaves the count alone
+KERNEL_WRAPPERS = (_roll_batch,)
+_roll_batch.launches = 0
 
 
 def _t_class(n: int) -> int:

@@ -490,6 +490,9 @@ def _kernels():
                                            + [ci] * 8 + [vp]),
                     "sedef_fill_variant_clusters": (
                         [ctypes.c_char_p] + [ci] * 2 + [ctypes.POINTER(ci)]),
+                    # stage 1's engines (ops/roll_engine.py, prefilter.py)
+                    "sedef_roll_batch": [vp] * 14 + [ci] * 11 + [vp],
+                    "sedef_window_ideals": [vp] * 7 + [ci] * 6 + [vp],
                 }
                 for name, argtypes in sigs.items():
                     fn = getattr(lib, name)

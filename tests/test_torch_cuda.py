@@ -710,3 +710,112 @@ def test_stage1_search_with_engines_on_card(dev, monkeypatch):
     roll = [h.to_bed() for h in
             seeder.initial_search(qh, rh, False, DEFAULT, use_device=dev)]
     assert pre == roll == host and host
+
+
+def _roll_edge_batch(rng):
+    """A soft-masked pair with an N run and the roll engine's edge rows in
+    batch-function columns: plan rows, empty query windows in both T
+    classes, a window past SQ keys, rows past the 512 class and past the
+    ladder."""
+    from sedef_tpu_torch.config import DEFAULT
+    from sedef_tpu_torch.native import lib as native
+    from sedef_tpu_torch.ops import dna
+    from sedef_tpu_torch.ops.index import MinimizerIndex
+
+    def rand(n, chars="ACGTacgt"):
+        return "".join(rng.choice(list(chars), n))
+
+    base = rand(1800)
+    mut = "".join(rand(1) if rng.random() < 0.1 else ch for ch in base)
+    q = rand(300) + base + "N" * 30 + base[:400]
+    r = rand(500) + mut + "N" * 30 + mut[:400] + rand(4800)
+    qh = MinimizerIndex(dna.PackedSeq("q", q), 12, 16)
+    rh = MinimizerIndex(dna.PackedSeq("r", r), 12, 16)
+    win, iv = native.search_plan(qh, rh, False, DEFAULT)
+    woff = np.repeat(np.arange(len(win)), win[:, 3])
+    cols = [win[woff, 1], win[woff, 2], iv[:, 0], iv[:, 2], iv[:, 3],
+            iv[:, 4], iv[:, 5]]
+    rows = [[int(c[i]) for c in cols] for i in range(len(cols[0]))]
+    extra = []
+    for steps in (300, 3000):
+        e = list(rows[0])
+        e[1], e[5] = e[0], steps
+        extra.append(e)
+    e = list(rows[0])
+    e[1] = e[0] + 165
+    extra.append(e)
+    for steps in (600, 4000, 5000):
+        e = list(rows[0])
+        e[5] = steps
+        extra.append(e)
+    cols = [np.asarray(c, np.int32) for c in zip(*(rows + extra))]
+    return qh, rh, cols
+
+
+@pytest.mark.parametrize("T_PAD,W,SQ", [(512, 512, 160), (4096, 512, 160),
+                                        (4096, 64, 48)])
+def test_stage1_roll_kernel_matches_plain(dev, T_PAD, W, SQ):
+    from sedef_tpu_torch.config import DEFAULT
+    from sedef_tpu_torch.ops import roll_engine as re_
+    from sedef_tpu_torch.ops.stat_model import relaxed_jaccard_estimate
+    qh, rh, cols = _roll_edge_batch(np.random.default_rng(9))
+    lut = torch.tensor([relaxed_jaccard_estimate(s, 12, DEFAULT)
+                        for s in range(161)], dtype=torch.int32, device=dev)
+    qk, _ = qh.device_arrays(dev)
+    rk, rl = rh.device_arrays(dev)
+    args = (rk, rl, len(rh.keys), lut, qk,
+            *[torch.from_numpy(c).to(dev) for c in cols])
+    kw = dict(W=W, SQ=SQ, INIT_PAD=192, T_PAD=T_PAD, n_shift=24)
+    before = re_._roll_batch.launches
+    got = re_._roll_batch(*args, **kw)
+    torch.cuda.synchronize()
+    assert re_._roll_batch.launches == before + 1
+    want = re_._roll_batch_torch(*args, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert not want[2].all()
+
+
+def test_stage1_window_ideals_kernel_matches_plain(dev):
+    from sedef_tpu_torch.config import DEFAULT
+    from sedef_tpu_torch.native import lib as native
+    from sedef_tpu_torch.ops import dna
+    from sedef_tpu_torch.ops import prefilter as pf
+    from sedef_tpu_torch.ops.index import MinimizerIndex
+    from sedef_tpu_torch.ops.stat_model import relaxed_jaccard_table
+    q, r = _stage1_pair(4)
+    qh = MinimizerIndex(dna.PackedSeq("q", q), 12, 16)
+    rh = MinimizerIndex(dna.PackedSeq("r", r), 12, 16)
+    win, iv = native.search_plan(qh, rh, False, DEFAULT)
+    woff = np.repeat(np.arange(len(win)), win[:, 3])
+    qk, _ = qh.device_arrays(dev)
+    rk, _ = rh.device_arrays(dev)
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    lut = T(relaxed_jaccard_table(320, 12, DEFAULT))
+    qk_all, s_all, _, _ = pf._window_sketches(qk, T(win[woff, 1]),
+                                              T(win[woff, 2]), lut, SQ=160)
+    L = DEFAULT.search.min_read_size
+    sa = iv[:, 2]
+    sb = np.searchsorted(rh.locs, iv[:, 0] + iv[:, 4] + L)
+    sb[::7] = sa[::7] + 1100  # past SA
+    n = len(sa)
+    iv_id = np.repeat(np.arange(n), 8)
+    a = np.repeat(sa, 8) + np.tile(np.arange(8), n)
+    b = np.searchsorted(rh.locs, rh.locs[np.minimum(a, len(rh.locs) - 1)]
+                        + L)
+    b[::37] = a[::37] + 300  # past RW
+    b[5::41] = a[5::41]      # empty
+    for fn, plain, args in (
+            (pf._span_intersections, pf._span_intersections_torch,
+             (rk, qk_all, T(sa), T(sb), 1024, 24)),
+            (pf._composition_ideals, pf._composition_ideals_torch,
+             (rk, qk_all, s_all, T(a), T(b), T(iv_id), 192, 24))):
+        before = fn.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        want = plain(*args)
+        assert got.dtype == want.dtype and torch.equal(got, want), fn
+        assert (want == pf.INF32).any() and (want > 0).any()

@@ -282,3 +282,111 @@ def test_search_stage_two_phase_byte_identical(genome, jobs, monkeypatch):
     assert dev == host == ref
     assert len(host) > 0
     assert assignment == [0] * len(assignment)  # one device: no rotation
+
+
+def _phase_inputs(seed, rate):
+    """Phase A's and phase B's arguments on one repeat-rich plan, as
+    numpy arrays: (rk, qk_all, s_all, sa, sb, a, b, iv_id)."""
+    rng = np.random.default_rng(seed)
+    q, r = repeat_rich_pair(rng, rate)
+    qh, rh = _pair(q, r)
+    plan = native.search_plan(qh, rh, False, DEFAULT)
+    assert len(plan[1]), "no intervals planned - test setup broken"
+    qws, qwe, t0, rws0, n_steps = _columns(qh, rh, plan)
+    rk = rh.keys.astype(np.int32)
+    lut = relaxed_jaccard_table(320, K, DEFAULT).astype(np.int32)
+    qk_all, s_all = (np.array(x) for x in ref_pf._window_sketches(
+        qh.keys.astype(np.int32), qws, qwe, lut, SQ=160)[:2])
+    sa = rws0.astype(np.int32)
+    sb = np.searchsorted(rh.locs, t0 + n_steps + L).astype(np.int32)
+    # composition rows: each interval's windows from t0 on, one a
+    # minimizer, and windows wider than RW (a range of 300 minimizers)
+    n = len(t0)
+    iv_id = np.repeat(np.arange(n), 8).astype(np.int32)
+    a = (np.repeat(sa, 8) + np.tile(np.arange(8), n)).astype(np.int32)
+    b = np.searchsorted(rh.locs, rh.locs[np.minimum(a, len(rk) - 1)]
+                        + L).astype(np.int32)
+    b[::37] = a[::37] + 300
+    b[5::41] = a[5::41]  # empty ranges
+    return rk, qk_all, s_all, sa, sb, a, b, iv_id
+
+
+@pytest.mark.parametrize("seed,rate", [(0, 0.12), (2, 0.22)])
+def test_window_ideal_wrappers_on_cpu_are_plain_and_reference(seed, rate):
+    """On CPU tensors ``_span_intersections`` and ``_composition_ideals``
+    are their plain versions and equal the reference's jitted ops, dtypes
+    included; no kernel is launched."""
+    rk, qk_all, s_all, sa, sb, a, b, iv_id = _phase_inputs(seed, rate)
+    T = torch.from_numpy
+    before = [w.launches for w in pf.KERNEL_WRAPPERS]
+    span = pf._span_intersections(T(rk), T(qk_all), T(sa), T(sb), SA=1024,
+                                  n_shift=2 * K)
+    assert torch.equal(span, pf._span_intersections_torch(
+        T(rk), T(qk_all), T(sa), T(sb), SA=1024, n_shift=2 * K))
+    _eq(span, ref_pf._span_intersections(rk, qk_all, sa, sb, SA=1024,
+                                         n_shift=2 * K))
+    comp = pf._composition_ideals(T(rk), T(qk_all), T(s_all), T(a), T(b),
+                                  T(iv_id), RW=192, n_shift=2 * K)
+    assert torch.equal(comp, pf._composition_ideals_torch(
+        T(rk), T(qk_all), T(s_all), T(a), T(b), T(iv_id), RW=192,
+        n_shift=2 * K))
+    _eq(comp, ref_pf._composition_ideals(rk, qk_all, s_all, a, b, iv_id,
+                                         RW=192, n_shift=2 * K))
+    assert (comp.numpy() == pf.INF32).any() and (comp.numpy() > 0).any()
+    assert [w.launches for w in pf.KERNEL_WRAPPERS] == before
+
+
+def test_window_ideal_wrappers_refuse_other_devices():
+    m = torch.zeros(4, dtype=torch.int32, device="meta")
+    m2 = torch.zeros(4, 160, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        pf._composition_ideals(m, m2, m, m, m, m, RW=192, n_shift=24)
+    with pytest.raises(ValueError):
+        pf._span_intersections(m, m2, m, m, SA=1024, n_shift=24)
+    c = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        pf._span_intersections(c, m2, c, c, SA=1024, n_shift=24)
+
+
+def window_ideals_model(rk, qk_all, s_all, a, b, iv_id, width, s_const,
+                        n_shift):
+    """``csrc/window_ideals.cu`` row by row in NumPy: the range's keys
+    (HAS_N as INF) sorted, each distinct key's place in the query row by
+    binary search, a shared key's union rank = the query keys below it +
+    the ref-only distinct keys below it (an exclusive scan)."""
+    out = np.empty(len(a), np.int32)
+    for i in range(len(a)):
+        if b[i] - a[i] > width:
+            out[i] = pf.INF32
+            continue
+        j = np.clip(a[i] + np.arange(max(b[i] - a[i], 0)), 0, len(rk) - 1)
+        keys = rk[j]
+        keys = np.sort(np.where(keys >> n_shift == 2, pf.INF32, keys))
+        new = (keys != pf.INF32) & np.r_[True, keys[1:] != keys[:-1]]
+        k = keys[new]
+        qrow = i if iv_id is None else iv_id[i]
+        q = qk_all[qrow]
+        s = s_const if s_all is None else s_all[qrow]
+        lq = np.searchsorted(q, k, side="left")
+        shared = q[np.minimum(lq, len(q) - 1)] == k
+        before = np.cumsum(~shared) - (~shared)
+        out[i] = int(((lq + before < s) & shared).sum())
+    return out
+
+
+@pytest.mark.parametrize("seed,rate", [(0, 0.12), (2, 0.22)])
+def test_window_ideals_model_matches_plain(seed, rate):
+    """The kernel's rank arithmetic against the plain versions' tagged
+    concat-sort, for both ops."""
+    rk, qk_all, s_all, sa, sb, a, b, iv_id = _phase_inputs(seed, rate)
+    T = torch.from_numpy
+    np.testing.assert_array_equal(
+        window_ideals_model(rk, qk_all, None, sa, sb, None, 1024,
+                            qk_all.shape[1] + 1024, 2 * K),
+        pf._span_intersections_torch(T(rk), T(qk_all), T(sa), T(sb),
+                                     SA=1024, n_shift=2 * K).numpy())
+    np.testing.assert_array_equal(
+        window_ideals_model(rk, qk_all, s_all, a, b, iv_id, 192, 0, 2 * K),
+        pf._composition_ideals_torch(T(rk), T(qk_all), T(s_all), T(a),
+                                     T(b), T(iv_id), RW=192,
+                                     n_shift=2 * K).numpy())

@@ -265,3 +265,242 @@ def test_device_roll_search_byte_identical(trial, monkeypatch):
     assert calls and str(calls[0]) == "cpu"
     assert dev == host == ref
     assert len(host) > 0
+
+
+@needs_native
+def test_roll_engine_empty_query_window():
+    """An interval whose query window is empty (qwe == qws: no query key,
+    the boundary index starts at -1 and falls with every ref key inserted
+    below it), in both T classes: the reference indexes the row from its
+    end there, and the port gives its results."""
+    rng = np.random.default_rng(4)
+    base = "".join(rng.choice(list("ACGT"), 1400))
+    q = base + "".join(rng.choice(list("ACGT"), 300))
+    r = ("".join(rng.choice(list("ACGT"), 300)) + mutate(base, 0.08, rng))
+    qh, rh = _indexes(q, r)
+    cols, _ = plan_columns(qh, rh)
+    assert len(cols[0])
+    row = [int(c[0]) for c in cols]
+    row[1] = row[0]  # qwe = qws
+    assert re_._t_class(row[5]) == 4096
+    short = list(row)
+    short[5] = 500  # the same interval cut to the 512 class
+    cols2 = tuple(np.asarray(c, np.int32) for c in zip(row, short))
+    bj, bs, ok = _run_both(qh, rh, cols2, batch=4)
+    assert (bj[0], bs[0], ok[0]) == (-33, 635, True)
+    assert ok.all()
+
+
+def _edge_batch(W=re_.DEFAULT_W, SQ=re_.DEFAULT_SQ):
+    """The batch function's arguments on the edge rows of both T classes:
+    plan rows of a pair with soft-masked bases and an N run (HAS_N ref
+    keys), an empty query window in each class, a window of more than SQ
+    keys, and rows past the ladder of the class they are batched in."""
+    rng = np.random.default_rng(9)
+    chars = list("ACGTacgt")
+    base = "".join(rng.choice(chars, 1800))
+    q = "".join(rng.choice(chars, 300)) + base + "N" * 30 + base[:400]
+    r = ("".join(rng.choice(chars, 500)) + mutate(base, 0.1, rng)
+         + "N" * 30 + mutate(base[:400], 0.1, rng))
+    qh, rh = _indexes(q, r)
+    cols, _ = plan_columns(qh, rh)
+    rows = [[int(c[i]) for c in cols] for i in range(min(6, len(cols[0])))]
+    # the N run's ref keys inside the initial window and the roll
+    n_at = int(np.searchsorted(rh.locs, len(r) - 500 - DEFAULT.search
+                               .min_read_size))
+    n_row = list(rows[0])
+    n_row[2], n_row[3] = int(rh.locs[n_at]), n_at
+    n_row[4] = int(np.searchsorted(rh.locs, n_row[2] + n_row[6]
+                                   - rows[0][2])) - n_at
+    n_row[6] = n_row[2] + rows[0][6] - rows[0][2]
+    n_row[5] = 300
+    rows.append(n_row)
+    for steps in (300, 3000):  # empty query windows
+        e = list(rows[0])
+        e[1], e[5] = e[0], steps
+        rows.append(e)
+    wide = list(rows[0])  # a window of more than SQ keys
+    wide[1] = wide[0] + SQ + 5
+    rows.append(wide)
+    for steps in (600, 5000):  # past the 512 class, past the ladder
+        e = list(rows[0])
+        e[5] = steps
+        rows.append(e)
+    cols2 = tuple(np.asarray(c, np.int32) for c in zip(*rows))
+    assert (rh.keys[n_at:n_at + n_row[4] + 50] >> 24 == 2).any()
+    return qh, rh, cols2
+
+
+def _batch_args(qh, rh, cols, dev="cpu"):
+    qk, _ = qh.device_arrays(dev)
+    rk, rl = rh.device_arrays(dev)
+    return (rk, rl, len(rh.keys), torch.from_numpy(lut(12)).to(dev), qk,
+            *[torch.from_numpy(c.copy()).to(dev) for c in cols])
+
+
+@needs_native
+@pytest.mark.parametrize("T_PAD", re_.T_PAD_LADDER)
+def test_roll_batch_wrapper_on_cpu_is_plain_and_reference(T_PAD):
+    """On CPU tensors ``_roll_batch`` is its plain version, and both equal
+    the reference's jitted batch on the same edge rows, dtypes included;
+    no kernel is launched."""
+    qh, rh, cols = _edge_batch()
+    args = _batch_args(qh, rh, cols)
+    kw = dict(W=512, SQ=160, INIT_PAD=192, T_PAD=T_PAD, n_shift=24)
+    before = re_._roll_batch.launches
+    got = re_._roll_batch(*args, **kw)
+    plain = re_._roll_batch_torch(*args, **kw)
+    want = ref_re._roll_batch(
+        rh.keys.astype(np.int32), rh.locs.astype(np.int32),
+        np.int32(len(rh.keys)), np.int32(len(rh.seq)), lut(12),
+        qh.keys.astype(np.int32), *cols, **kw)
+    assert re_._roll_batch.launches == before
+    for g, p, w_ in zip(got, plain, want):
+        assert g.dtype == p.dtype and g.numpy().dtype == np.asarray(w_).dtype
+        assert torch.equal(g, p)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+    ok = got[2].numpy()
+    assert ok.any() and not ok.all()
+
+
+def test_roll_batch_refuses_other_devices():
+    m = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        re_._roll_batch(m, m, 4, m, m, m, m, m, m, m, m, m, W=512, SQ=160,
+                        INIT_PAD=192, T_PAD=512, n_shift=24)
+    c = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        re_._roll_batch(c, c, 4, c, c, c, c, c, c, c, c, m, W=512, SQ=160,
+                        INIT_PAD=192, T_PAD=512, n_shift=24)
+
+
+def roll_kernel_model(r_keys, r_locs, nr, limit_lut, q_keys, cols, W, SQ,
+                      INIT_PAD, T_PAD, n_shift):
+    """``csrc/roll_engine.cu`` one interval at a time in plain Python: the
+    row as the list of its ln live entries (INF past them), a key's place
+    by the count of live keys below it, each interval looping to its own
+    counts (capped at INIT_PAD / T_PAD), the boundary index read through
+    the kernel's ``take1``."""
+    INF, MIN = 2**31 - 1, -2**31
+    r_keys, r_locs, q_keys = (np.asarray(a).tolist()
+                              for a in (r_keys, r_locs, q_keys))
+    limit_lut = np.asarray(limit_lut).tolist()
+
+    def gather(a, i):
+        return a[max(min(i, len(a) - 1), 0)]
+
+    def take1(row, i):
+        i = min(i, W - 1)
+        if i < 0:
+            i += W
+        if i < 0:
+            return MIN
+        return row[i] if i < len(row) else INF
+
+    def lower_pos(row, h):
+        return sum(1 for x in row if (x >> 2) < h)
+
+    def vadd(row, S, h, bit):
+        pos = lower_pos(row, h)
+        cur = take1(row, pos)
+        exists = (cur >> 2) == h and pos < W
+        flag_h = cur & 3 if exists else 0
+        if exists and flag_h & bit:
+            return
+        if not exists and len(row) >= W:
+            S["ovf"] = True
+            return
+        if exists:
+            row[pos] = cur | bit
+        else:
+            row.insert(pos, (h << 2) | bit)
+            if pos <= S["Bp"]:
+                S["Bp"] += 1
+        bcur = take1(row, S["Bp"])
+        if h < (bcur >> 2):
+            if (flag_h | bit if exists else bit) == 3:
+                S["inter"] += 1
+            if not exists:
+                S["inter"] -= (bcur & 3) == 3
+                S["Bp"] -= 1
+
+    def vremove(row, S, h, bit):
+        pos = lower_pos(row, h)
+        cur = take1(row, pos)
+        found = (cur >> 2) == h and pos < W
+        flag_h = cur & 3 if found else 0
+        if not (found and flag_h & bit):
+            return
+        erase = flag_h == bit
+        if h <= (take1(row, S["Bp"]) >> 2):
+            S["inter"] -= flag_h == 3
+            if erase:
+                S["Bp"] += 1
+                S["inter"] += (S["Bp"] < len(row)
+                               and (take1(row, S["Bp"]) & 3) == 3)
+        if erase:
+            del row[pos]
+            if pos < S["Bp"]:
+                S["Bp"] -= 1
+        else:
+            row[pos] = cur & ~bit
+
+    out = [[], [], []]
+    for qws, qwe, t0, rws0, init_cnt, n_steps, re0 in zip(
+            *[np.asarray(c).tolist() for c in cols]):
+        keys = sorted(gather(q_keys, qws + j) if qws + j < qwe else INF
+                      for j in range(SQ))
+        row = [(v << 2) | 1 for i, v in enumerate(keys)
+               if v != INF and (i == 0 or keys[i - 1] != v)]
+        s = len(row)
+        limit = limit_lut[min(s, len(limit_lut) - 1)]
+        S = dict(Bp=s - 1, inter=0, ovf=qwe - qws > SQ)
+        for i in range(min(init_cnt, INIT_PAD)):
+            h = gather(r_keys, rws0 + i)
+            if h >> n_shift != 2:
+                vadd(row, S, h, 2)
+
+        def jac():
+            return S["inter"] if S["inter"] >= limit else S["inter"] - limit
+
+        best = (jac(), 0)
+        rws, rwe, rs, re = rws0, rws0 + init_cnt, t0, re0
+        for t in range(min(n_steps, T_PAD)):
+            h = gather(r_keys, rws)
+            can = rws < nr and gather(r_locs, rws) < rs + 1
+            if can and h >> n_shift != 2:
+                vremove(row, S, h, 2)
+            rws += can
+            h = gather(r_keys, rwe)
+            can = rwe < nr and gather(r_locs, rwe) == re
+            if can and h >> n_shift != 2:
+                vadd(row, S, h, 2)
+            rwe += can
+            if jac() > best[0]:
+                best = (jac(), t + 1)
+            rs, re = rs + 1, re + 1
+        out[0].append(best[0])
+        out[1].append(best[1])
+        out[2].append(not (S["ovf"] or init_cnt > INIT_PAD
+                           or n_steps > T_PAD))
+    return (np.asarray(out[0], np.int32), np.asarray(out[1], np.int32),
+            np.asarray(out[2], bool))
+
+
+@needs_native
+@pytest.mark.parametrize("T_PAD,W,SQ", [(512, 512, 160), (4096, 512, 160),
+                                        (4096, 64, 48), (512, 64, 16)])
+def test_roll_kernel_model_matches_plain(T_PAD, W, SQ):
+    """The kernel's design (its row, its loops, its boundary reads) as a
+    Python model against the plain version on the edge rows, at the
+    card's capacities and at a store of 64 entries that overflows."""
+    qh, rh, cols = _edge_batch(W=W, SQ=SQ)
+    args = _batch_args(qh, rh, cols)
+    want = re_._roll_batch_torch(*args, W=W, SQ=SQ, INIT_PAD=192,
+                                 T_PAD=T_PAD, n_shift=24)
+    got = roll_kernel_model(rh.keys, rh.locs, len(rh.keys), lut(12),
+                            qh.keys, cols, W, SQ, 192, T_PAD, 24)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g, w_.numpy())
+    if W == 64 and SQ == 48:
+        assert not want[2].numpy().all()
