@@ -56,18 +56,25 @@ line):
    a batch of fewer than two problems a device and two problems wider
    than ``GIANT_S_T``, CIGARs equal to the single card aligner's; (c)
    ``multichip_step`` in an NCCL world of one, band bytes equal to the
-   plain fill's and total == B; (d) ``classify_pair`` with every gap DP on
-   the card, the CPU's class for each of 15 seeded pairs;
+   plain fill's, its q-gram gate (kernel ``csrc/qgram.cu``) equal to the
+   plain version's, total == B, then the q-gram kernel against its plain
+   version on 16,384 pairs at W 128, timed; (d) ``classify_pair`` with
+   every gap DP on the card, the CPU's class for each of 15 seeded pairs;
 5c. stage 1's device engines (``[stage1]`` lines, one JSON line of them):
-   the device index build on both strands of every e2e-20M chromosome
-   against the host scan and the stable sort; ``search_stage(jobs=1)``
+   the device index build (kernel ``csrc/device_index.cu``) on both
+   strands of every e2e-20M chromosome against the host scan and the
+   stable sort, and the kernel against its plain version on a first
+   segment (timed), a continuation segment and a segment past its
+   capacity; ``search_stage(jobs=1)``
    (the whole-job path) on both genomes with the roll prefilter forced on
    and then with the roll engine forced on (``ROLL_DEVICE_MIN = 0``),
    seeds.bed byte-identical to the host route's, with the intervals
    planned and pruned in each phase, the composition rows, the device ms
-   from dispatch to collect and the stage-1 walls; every window-ideal
-   call of the prefilter runs (kernel ``csrc/window_ideals.cu``) against
-   its plain version on the same tensors; one ``run_pipeline(jobs=1)`` of
+   from dispatch to collect and the stage-1 walls; every query-sketch and
+   window-ideal call of the prefilter runs (kernels
+   ``csrc/window_sketches.cu``, ``csrc/window_ideals.cu``) against its
+   plain version on the same tensors, and one full batch of sketches
+   (131,072 rows x SQ 160), timed; one ``run_pipeline(jobs=1)`` of
    e2e-20M under the prefilter gates ``devcal.apply`` installs, beds equal
    to the host route's; the roll engine (kernel ``csrc/roll_engine.cu``)
    forced on for the dense genome's first chromosome (25 Mbp at the
@@ -112,13 +119,17 @@ row of a traceback; the variant kernel is held to half its fill's
 operations (the 16x2 cell of ``csrc/dp_cell2.cuh`` does two lanes an
 instruction), and its line also carries the one-lane and the byte bound.
 No single PyTorch call computes an affine-gap
-direction matrix or its traceback, an interval's roll or a window's ideal,
-so ``library_ms`` is null throughout.  A stage-1 kernel's bound counts
-the work its inputs need (``_least_work``): 16 operations a sketch update
-of a roll, and for a window-ideal row of n keys n log2 n comparisons, a
-search of the query row and a scan element a key; ``bound_formula_ms``
-beside it holds the call to ``_op_costs``' formulas, the plain versions'
-W- or width-wide row passes, by which the stage-1 op lines are held.
+direction matrix or its traceback, an interval's roll, a window's ideal, a
+window's distinct sorted keys, a winnowed minimizer index or a q-gram
+histogram intersection, so ``library_ms`` is null throughout.  A stage-1
+kernel's bound counts the work its inputs need (``_least_work``): 16
+operations a sketch update of a roll; for a window-ideal row of n keys n
+log2 n comparisons, a search of the query row and a scan element a key;
+for a query sketch of n keys n log2 n comparisons and a compaction step;
+16 a k-mer position of the index build; 12 a q-gram;
+``bound_formula_ms`` beside it holds the call to ``_op_costs``' formulas,
+the plain versions' W- or width-wide row passes, by which the stage-1 op
+lines are held.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1278,11 +1289,15 @@ def _entry_mesh_aligner():
 
 def _entry_multichip_step():
     """(c) ``multichip_step`` in a world of one on the card: the band
-    bytes of the plain fill, total == B."""
+    bytes of the plain fill, the q-gram scores of the plain gate (kernel
+    ``csrc/qgram.cu``), total == B; then the q-gram kernel against its
+    plain version on a batch of 16,384 pairs at W 128, timed."""
+    import numpy as np
     import torch
     import torch.distributed as dist
 
     from sedef_tpu_torch.ops import wavefront as wf
+    from sedef_tpu_torch.parallel import mesh as mesh_mod
     from sedef_tpu_torch.parallel.mesh import (example_inputs, make_mesh,
                                                multichip_step)
     S_q, S_t, B = 1024, 1024, 16
@@ -1294,10 +1309,17 @@ def _entry_multichip_step():
         args = example_inputs(1, 1, S_q, S_t, B)
         shard = [torch.from_numpy(a[0, 0]).to(dev) for a in args[:4]]
         _zero_counts()
+        mesh_mod.qgram_scores.launches = 0
         p, mcells, qg, total, total_passed, counts = multichip_step(
             mesh, S_q, S_t)(*shard, args[4])
         torch.cuda.synchronize()
         launches = _read_counts()
+        launches["qgram_scores"] = mesh_mod.qgram_scores.launches
+        STAGE1["qgram_scores"]["launches"] += launches["qgram_scores"]
+        if launches["qgram_scores"]:
+            STAGE1_PATHS["qgram_scores"].append("multichip_step")
+        _compare("qgram_scores", (qg,),
+                 (mesh_mod.qgram_scores_torch(shard[2], shard[3]),))
         plain = wf.wavefront_fill_torch(shard[0][:, :S_q].to(torch.int8),
                                         shard[1])
         bad, _ = _band_diff(p, plain, 0, S_q, S_t, 1)
@@ -1306,14 +1328,27 @@ def _entry_multichip_step():
             raise AssertionError(f"multichip_step counters: total "
                                  f"{int(total)}, passed {int(total_passed)},"
                                  f" counts {counts.tolist()}")
-        _require_launched("multichip_step", launches, ("wavefront_fill",))
+        _require_launched("multichip_step", launches,
+                          ("wavefront_fill", "qgram_scores"))
         log(f"[entry] multichip_step, world of 1 ({dist.get_backend()}) on "
-            f"the card, ({S_q},{S_t},{B}): band bytes = plain fill's, total "
-            f"{int(total)}, passed {int(total_passed)}, mcells "
-            f"{mcells.tolist()[:4]}..., qg {qg.tolist()[:4]}...; launches "
-            f"{launches}")
+            f"the card, ({S_q},{S_t},{B}): band bytes = plain fill's, qg = "
+            f"the plain gate's, total {int(total)}, passed "
+            f"{int(total_passed)}, mcells {mcells.tolist()[:4]}..., qg "
+            f"{qg.tolist()[:4]}...; launches {launches}")
     finally:
         dist.destroy_process_group()
+    rng = np.random.default_rng(13)
+    a = rng.integers(0, 4, (16_384, 128)).astype(np.uint8)
+    b = a.copy()
+    flip = rng.random(a.shape) < 0.1
+    b[flip] = rng.integers(0, 4, int(flip.sum()))
+    k_ms, p_ms = _time_against_plain(
+        "qgram_scores", mesh_mod.qgram_scores, mesh_mod.qgram_scores_torch,
+        (torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()), {},
+        "16,384 pairs, W 128")
+    log(f"[entry] q-gram kernel (csrc/qgram.cu), 16,384 pairs at W 128: "
+        f"{k_ms:.3f} ms (CUDA events, median of 3) against the plain "
+        f"version's {p_ms:.3f} ms on the card, outputs equal")
 
 
 def _entry_classify():
@@ -1375,6 +1410,7 @@ def phase_entry_points(genomes, host, tmp):
 
 SORT_OPS = 1.0  # operations a comparison of a sort (n log2 n of them)
 SCAN_OPS = 8    # operations an element of the union-rank scan
+QG, QSZ = 5, 1024  # the mesh step's q-grams and their bins (ops/filter.py)
 
 
 def _sort_ops(rows: int, width: int) -> float:
@@ -1427,10 +1463,20 @@ def _op_costs():
                 nb(r_keys, r_locs, q_keys, qws, qwe, t0, rws0, init_cnt,
                    n_steps, re0) + B * 9, (B, W, T_PAD))
 
+    def qgram_scores(codes_a, codes_b):
+        # the plain version's two gram passes and its three 1,024-bin
+        # passes (the histograms' zeroing, their minimum and its sum)
+        W = codes_a.shape[-1]
+        P = codes_a.numel() // max(W, 1)
+        n = max(W - QG + 1, 0)
+        return (P * (2 * n * (2 * QG + 2) + 3 * QSZ),
+                nb(codes_a, codes_b) + 4 * P, (P, W))
+
     return {"_window_sketches": window_sketches,
             "_span_intersections": span_intersections,
             "_composition_ideals": composition_ideals,
-            "_device_index": device_index, "_roll_batch": roll_batch}
+            "_device_index": device_index, "_roll_batch": roll_batch,
+            "qgram_scores": qgram_scores}
 
 
 class OpTimer:
@@ -1507,6 +1553,13 @@ STAGE1_KERNELS = {
     "_roll_batch": (SRC_ROLL, "sedef_tpu/ops/roll_engine.py:143"),
     "_span_intersections": (SRC_IDEALS, "sedef_tpu/ops/prefilter.py:92"),
     "_composition_ideals": (SRC_IDEALS, "sedef_tpu/ops/prefilter.py:118"),
+    "_window_sketches": ("sedef_tpu_torch/csrc/window_sketches.cu",
+                         "sedef_tpu/ops/prefilter.py:73"),
+    "_device_index": ("sedef_tpu_torch/csrc/device_index.cu",
+                      "sedef_tpu/ops/winnow_device.py:84"),
+    # the mesh step's gate, checked on [entry] (c)'s path
+    "qgram_scores": ("sedef_tpu_torch/csrc/qgram.cu",
+                     "sedef_tpu/parallel/mesh.py:46"),
 }
 # per stage-1 kernel: launches on stage 1's paths (each path's run counted
 # from 0), the largest difference from the plain version, the rows
@@ -1514,13 +1567,13 @@ STAGE1_KERNELS = {
 STAGE1 = {name: {"launches": 0, "max_abs_err": 0, "compared": 0,
                  "library_ms": None} for name in STAGE1_KERNELS}
 # the stage-1 paths a kernel must have been launched on
-STAGE1_PATHS = {"_roll_batch": [], "_span_intersections": [],
-                "_composition_ideals": []}
+STAGE1_PATHS = {name: [] for name in STAGE1_KERNELS}
 
 
 def _stage1_wrappers():
-    from sedef_tpu_torch.ops import prefilter, roll_engine
-    return prefilter.KERNEL_WRAPPERS + roll_engine.KERNEL_WRAPPERS
+    from sedef_tpu_torch.ops import prefilter, roll_engine, winnow_device
+    return (prefilter.KERNEL_WRAPPERS + roll_engine.KERNEL_WRAPPERS
+            + winnow_device.KERNEL_WRAPPERS)
 
 
 class _Stage1Path:
@@ -1602,6 +1655,13 @@ def _time_against_plain(name, kernel, plain, args, kw, at):
 # search, the found / flag tests, the boundary read and its comparison,
 # the counter and the best-jaccard update
 UPDATE_OPS = 16
+# a k-mer position of the index build, at the least: a rolling pack and
+# its mask (3), the status from two running counts (4), a sliding minimum
+# in amortised O(1) (3), the change-point test and its masks (3), the
+# compaction (3)
+INDEX_OPS = 16
+# a q-gram: QG shift-ors (2 QG) and a range test, one histogram update
+GRAM_OPS = 2 * QG + 2
 
 
 def _least_work(plain, args, kw):
@@ -1610,7 +1670,10 @@ def _least_work(plain, args, kw):
     operations the data asks for (a roll: UPDATE_OPS for each sketch
     update its rows make, init adds and two a step; a window-ideal row:
     n log2 n comparisons to sort its n keys, a search of the query row
-    and a scan element for each).  ``_op_costs`` holds the same calls to
+    and a scan element for each; a query sketch: n log2 n comparisons and
+    a compaction step for its n gathered keys; the index build:
+    INDEX_OPS a k-mer position; the q-gram gate: GRAM_OPS a gram of
+    either window).  ``_op_costs`` holds the same calls to
     a W- or width-wide pass instead, the plain versions' work."""
     import inspect
     import math
@@ -1621,6 +1684,22 @@ def _least_work(plain, args, kw):
     def nb(*ts):
         return sum(t.numel() * t.element_size() for t in ts
                    if t is not None)
+
+    if "codes_a" in a:  # q-gram scores: a and b's grams
+        W = a["codes_a"].shape[-1]
+        P = a["codes_a"].numel() // W
+        return (GRAM_OPS * 2 * P * max(W - QG + 1, 0),
+                nb(a["codes_a"], a["codes_b"]) + 4 * P)
+    if "code" in a:  # the index build: every k-mer position once
+        nk = a["code"].shape[0] - a["k"] + 1
+        return (INDEX_OPS * nk, nb(a["code"], a["cls"]) + 8 * a["cap"] + 4)
+    if "limit_lut" in a and "n_steps" not in a:  # the query sketches
+        SQ = a["SQ"]
+        n = (a["qwe"] - a["qws"]).clamp(0, SQ).double()
+        B = n.shape[0]
+        return (float((n * (torch.log2(n.clamp(min=2)) + 1)).sum()),
+                nb(a["q_keys"], a["qws"], a["qwe"], a["limit_lut"])
+                + B * (4 * SQ + 9))
 
     if "n_steps" in a:
         updates = (int(a["init_cnt"].clamp(0, a["INIT_PAD"]).sum())
@@ -1643,18 +1722,26 @@ def _least_work(plain, args, kw):
             + nb(lo, hi, iv) + 4 * lo.shape[0])
 
 
+# the ops whose every whole-job call is checked against its plain version
+RECORDED = ("_window_sketches", "_span_intersections", "_composition_ideals")
+
+
 def _check_ideal_calls(timer):
-    """Every window-ideal call a whole-job run made, its kernel's output
-    against the plain version on the same CUDA tensors; the largest call
-    of each op is timed against its plain version."""
+    """Every query-sketch and window-ideal call a whole-job run made, its
+    kernel's outputs against the plain version on the same CUDA tensors;
+    the largest call of each window-ideal op is timed against its plain
+    version (the sketches at a full batch, ``_sketch_batch``)."""
     from sedef_tpu_torch.ops import prefilter as pf
     done = {}
-    for name in ("_span_intersections", "_composition_ideals"):
+    for name in ("_window_sketches", "_span_intersections",
+                 "_composition_ideals"):
         plain = getattr(pf, name + "_torch")
         calls = timer.calls.get(name, [])
         for a, kw, out in calls:
-            _compare(name, (out,), (plain(*a, **kw),))
-        if calls:
+            want = plain(*a, **kw)
+            _compare(name, out if isinstance(out, tuple) else (out,),
+                     want if isinstance(want, tuple) else (want,))
+        if calls and name != "_window_sketches":
             a, kw, _ = max(calls, key=lambda c: c[0][3].shape[0])
             if a[3].shape[0] >= STAGE1[name].get("rows", 0):
                 STAGE1[name]["rows"] = a[3].shape[0]
@@ -1667,10 +1754,13 @@ def _check_ideal_calls(timer):
 
 def _stage1_index(fr, names, k, w, timer):
     """The device index build on both strands of every chromosome against
-    the host scan and the stable sort."""
+    the host scan and the stable sort (kernel ``csrc/device_index.cu``),
+    then the kernel against its plain version on a first segment (timed),
+    a continuation segment and a segment whose emits pass its capacity."""
     import numpy as np
     import torch
 
+    from sedef_tpu_torch.ops import winnow_device as wd
     from sedef_tpu_torch.ops.dna import PackedSeq
     from sedef_tpu_torch.ops.winnow import minimizers
     from sedef_tpu_torch.ops.winnow_device import device_index_arrays
@@ -1679,7 +1769,7 @@ def _stage1_index(fr, names, k, w, timer):
     device_index_arrays(seqs[0].code[:100_000], seqs[0].cls[:100_000], k,
                         w, device="cuda")  # first-call set-up, untimed
     ms, host_ms = [], []
-    with timer:
+    with _Stage1Path("e2e-20M index", ("_device_index",)) as path, timer:
         for s in seqs:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1699,8 +1789,38 @@ def _stage1_index(fr, names, k, w, timer):
         f"{len(seqs[0].code)} bp = host minimizers + stable sort; ms per "
         f"strand (host clock, with the copies): "
         + ", ".join(f"{m:.3f}" for m in ms) + "; the host's (native scan "
-        "and numpy's stable sort): " + ", ".join(f"{m:.3f}" for m in host_ms))
-    return {"card_ms": ms, "host_ms": host_ms}
+        "and numpy's stable sort): " + ", ".join(f"{m:.3f}" for m in host_ms)
+        + f"; kernel launches {path.counts}")
+    # segments as _run_segments cuts them, against the plain version
+    code = torch.from_numpy(seqs[0].code).cuda()
+    cls = torch.from_numpy(seqs[0].cls).cuda()
+    seg, n = wd._SEG, code.shape[0]
+    nk_seg = seg - k + 1
+    cap = nk_seg // 6
+    k_ms, p_ms = _time_against_plain(
+        "_device_index", wd._device_index, wd._device_index_torch,
+        (code[:seg], cls[:seg], nk_seg, k, w, cap, 0), {},
+        f"a first segment of {seg} codes")
+    lo = nk_seg - w
+    hi = min(lo + seg, n)
+    homo = torch.full((seg,), 3, dtype=torch.uint8, device="cuda")
+    checks = [(code[lo:hi], cls[lo:hi], hi - lo - k + 1, k, w, cap, w),
+              (homo, torch.zeros_like(homo), nk_seg, k, w, cap, 0)]
+    counts = []
+    for args in checks:
+        got = wd._device_index(*args)
+        _compare("_device_index", got, wd._device_index_torch(*args))
+        counts.append(int(got[0]))
+    if counts[1] <= cap:
+        raise AssertionError("the homopolymer segment stayed within cap")
+    log(f"[stage1] index kernel (csrc/device_index.cu) = the plain version "
+        f"on a first segment of {seg} codes ({k_ms:.3f} ms, CUDA events, "
+        f"median of 3, against the plain version's {p_ms:.3f} ms on the "
+        f"card), a continuation segment of {hi - lo} codes (drop {w}, "
+        f"{counts[0]} minimizers) and a homopolymer segment past cap "
+        f"({counts[1]} emits, cap {cap})")
+    return {"card_ms": ms, "host_ms": host_ms, "launches": path.counts,
+            "kernel_ms": k_ms, "plain_ms": p_ms}
 
 
 def _stage1_whole_job(fr, bins, name, timer):
@@ -1730,7 +1850,8 @@ def _stage1_whole_job(fr, bins, name, timer):
     for mode in ("prefilter", "roll"):
         if mode == "prefilter":
             seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS = True, 0
-            expect = ("_span_intersections", "_composition_ideals")
+            expect = ("_window_sketches", "_span_intersections",
+                      "_composition_ideals")
         else:
             seeder.ROLL_DEVICE_MIN = 0
             expect = ("_roll_batch",)
@@ -1775,6 +1896,41 @@ def _stage1_whole_job(fr, bins, name, timer):
                 f"{path.counts}")
             out["roll"] = {"wall_card_s": wall_dev, "launches": path.counts}
     return out
+
+
+def _sketch_batch(qh, k):
+    """One full batch of query-window sketches, ``ROW_BATCH`` rows at SQ
+    160 (the windows of ``qh``'s self plan, repeated), the kernel against
+    its plain version, timed."""
+    import numpy as np
+    import torch
+
+    from sedef_tpu_torch.config import DEFAULT
+    from sedef_tpu_torch.native import lib as native
+    from sedef_tpu_torch.ops import prefilter as pf
+    from sedef_tpu_torch.ops.stat_model import relaxed_jaccard_table
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+
+    win, _ = native.search_plan(qh, qh, True, DEFAULT)
+    rows = np.resize(np.repeat(np.arange(len(win)), win[:, 3]),
+                     pf.ROW_BATCH)
+    dk, _ = qh.device_arrays("cuda")
+    args = (dk, T(win[rows, 1]), T(win[rows, 2]),
+            T(relaxed_jaccard_table(320, k, DEFAULT)))
+    k_ms, p_ms = _time_against_plain(
+        "_window_sketches", pf._window_sketches, pf._window_sketches_torch,
+        args, dict(SQ=pf.DEFAULT_SQ),
+        f"{pf.ROW_BATCH} rows x SQ {pf.DEFAULT_SQ}")
+    span = (args[2] - args[1]).clamp(min=0).float()
+    log(f"[stage1] sketch kernel (csrc/window_sketches.cu), one batch of "
+        f"{pf.ROW_BATCH} rows x SQ {pf.DEFAULT_SQ} (the self plan's query "
+        f"windows, {float(span.mean()):.1f} keys a window on average, "
+        f"{int((span > pf.DEFAULT_SQ).sum())} past SQ): {k_ms:.3f} ms (CUDA "
+        f"events, median of 3) against the plain version's {p_ms:.3f} ms "
+        f"on the card, outputs equal")
+    return {"ms": k_ms, "plain_ms": p_ms}
 
 
 def _stage1_gates(genomes, host, tmp):
@@ -1894,15 +2050,20 @@ def _roll_kernel_checks(qh, seq_len, k, w):
             msg = "; RollEngine.run on the card = on the CPU"
         ok = re_._roll_batch(*args, **kw)[2].cpu().numpy()
         rolled = int(cc[5][ok].sum())
+        rec = STAGE1["_roll_batch"]
         out[f"batch_{label}"] = {"ms": k_ms, "plain_ms": p_ms,
                                  "ok": int(ok.sum()),
-                                 "steps_per_s": rolled / k_ms * 1e3}
+                                 "steps_per_s": rolled / k_ms * 1e3,
+                                 "bound_ms": rec["bound_ms"],
+                                 "bound_by": rec["bound_by"],
+                                 "bound_formula_ms": rec["bound_formula_ms"]}
         log(f"[stage1] roll kernel, one batch of {len(cc[0])} x W "
             f"{re_.DEFAULT_W} in the {label} class (the self plan's "
             f"intervals, repeated): {k_ms:.3f} ms (CUDA events, median of "
             f"3) against the plain version's {p_ms:.3f} ms on the card, "
-            f"outputs equal; {int(ok.sum())} ok, "
-            f"{rolled / k_ms * 1e3:.0f} steps/s{msg}")
+            f"outputs equal; bound {rec['bound_ms']:.4f} ms by "
+            f"{rec['bound_by']} (formula {rec['bound_formula_ms']:.4f} ms); "
+            f"{int(ok.sum())} ok, {rolled / k_ms * 1e3:.0f} steps/s{msg}")
     # the edge rows
     eq, er, ec = _roll_edge_rows(k, w)
     eqk, _ = eq.device_arrays("cuda")
@@ -2015,7 +2176,7 @@ def phase_stage1(genomes, host, tmp, dense_fa):
     from sedef_tpu_torch.ops.index import MinimizerIndex
     t_phase = time.perf_counter()
     k, w = DEFAULT.search.kmer_size, DEFAULT.search.window_size
-    timer = OpTimer(record=("_span_intersections", "_composition_ideals"))
+    timer = OpTimer(record=RECORDED)
     summary = {}
     fr = FastaReference(genomes["e2e-20M"][0])
     bins = generate_translation(fr)
@@ -2026,14 +2187,15 @@ def phase_stage1(genomes, host, tmp, dense_fa):
     frm = FastaReference(genomes["mosaic-20M"][0])
     summary["mosaic-20M"] = _stage1_whole_job(
         frm, generate_translation(frm), "mosaic-20M",
-        OpTimer(record=("_span_intersections", "_composition_ideals")))
+        OpTimer(record=RECORDED))
     summary["gates"] = _stage1_gates(genomes, host, tmp)
     roll_timer = OpTimer()
     summary["roll"] = _stage1_roll(dense_fa, roll_timer, k, w)
     ops["dense roll"] = roll_timer.read().get("_roll_batch")
     seq = fr.get_sequence(names[0])
-    summary["roll_kernel"] = _roll_kernel_checks(
-        MinimizerIndex(PackedSeq(names[0], seq), k, w), len(seq), k, w)
+    qh = MinimizerIndex(PackedSeq(names[0], seq), k, w)
+    summary["sketch_kernel"] = _sketch_batch(qh, k)
+    summary["roll_kernel"] = _roll_kernel_checks(qh, len(seq), k, w)
     summary["ops"] = ops
     for name, o in ops.items():
         log(f"[stage1] op {name}: {o['launches']} calls, {o['ms']:.3f} ms "

@@ -42,11 +42,11 @@
 
 #include <cstdint>
 
+#include "row_sort.cuh"
+
 namespace {
 
-constexpr int32_t INF32 = 0x7fffffff;
 constexpr int32_t I32_MIN = static_cast<int32_t>(0x80000000u);
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 4;  // intervals a block
 
 struct RollArgs {
@@ -184,24 +184,6 @@ __device__ void vremove(int32_t* row, Sketch& S, int32_t h, int bit,
   __syncwarp();
 }
 
-// ascending bitonic sort of x[0, n), n a power of two, by one warp
-__device__ void warp_bitonic(int32_t* x, int n, int lane) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = lane; i < n / 2; i += 32) {
-        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
-        const int hi = lo + j;
-        const int32_t u = x[lo], v = x[hi];
-        if ((u > v) == ((lo & k) == 0)) {
-          x[lo] = v;
-          x[hi] = u;
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
 __global__ void __launch_bounds__(WARPS * 32)
     roll_batch_kernel(RollArgs a) {
   extern __shared__ int32_t smem[];
@@ -220,7 +202,7 @@ __global__ void __launch_bounds__(WARPS * 32)
                                          : INF32;
   for (int j = lane; j < W; j += 32) row[j] = INF32;
   __syncwarp();
-  warp_bitonic(scr, a.SQP, lane);
+  group_bitonic<32>(scr, a.SQP, lane);
   int s = 0;
   for (int base = 0; base < a.SQ; base += 32) {
     const int j = base + lane;

@@ -55,7 +55,8 @@ it.  A device error raises: no interval silently goes to the host.  On a
 card both row evaluations (phase A's span rows, phase B's composition
 rows) are launches of one kernel, ``csrc/window_ideals.cu``, which sorts
 each row in shared memory and never builds the plain versions' (rows,
-SQ + width) concat; the query sketches stay tensor code.
+SQ + width) concat; the query sketches are one launch of
+``csrc/window_sketches.cu`` (a warp a row, the dedup a ballot compaction).
 """
 
 from __future__ import annotations
@@ -100,8 +101,9 @@ def _gather(keys: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return keys[torch.clamp(idx, max=keys.shape[0] - 1).long()]
 
 
-def _window_sketches(q_keys, qws, qwe, limit_lut, SQ: int):
-    """Per-interval sorted distinct query-window keys + relaxed limit.
+def _window_sketches_torch(q_keys, qws, qwe, limit_lut, SQ: int):
+    """``_window_sketches``' plain version.  Per-interval sorted distinct
+    query-window keys + relaxed limit.
 
     Returns (qk (B, SQ) int32 INF-padded ascending, s (B,) int32, limit
     (B,) int32, ovf (B,) bool)."""
@@ -116,6 +118,36 @@ def _window_sketches(q_keys, qws, qwe, limit_lut, SQ: int):
     s = (qk != INF32).sum(dim=1, dtype=torch.int32)
     limit = limit_lut[torch.clamp(s, max=limit_lut.shape[0] - 1).long()]
     return qk, s, limit, (qwe - qws) > SQ
+
+
+def _window_sketches(q_keys, qws, qwe, limit_lut, SQ: int):
+    """The per-interval query sketches, as ``_window_sketches_torch``: on
+    CUDA tensors one launch of ``csrc/window_sketches.cu`` on the current
+    stream (no synchronisation), on CPU tensors the plain version."""
+    dev = _same_device(q_keys, qws, qwe, limit_lut)
+    if dev.type == "cpu":
+        return _window_sketches_torch(q_keys, qws, qwe, limit_lut, SQ)
+    for name, t in (("q_keys", q_keys), ("qws", qws), ("qwe", qwe),
+                    ("limit_lut", limit_lut)):
+        _check(t, torch.int32, 1, name)
+    B = qws.shape[0]
+    if qwe.shape[0] != B:
+        raise ValueError("qws and qwe must have one length")
+    if q_keys.shape[0] < 1 or limit_lut.shape[0] < 1:
+        raise ValueError("empty query keys or limit table")
+    if not 1 <= SQ <= 1024:
+        raise ValueError(f"SQ {SQ} is not in [1, 1024]")
+    qk = torch.empty((B, SQ), dtype=torch.int32, device=dev)
+    s = torch.empty(B, dtype=torch.int32, device=dev)
+    limit = torch.empty(B, dtype=torch.int32, device=dev)
+    ovf = torch.empty(B, dtype=torch.bool, device=dev)
+    if B:
+        _launch(KERNEL_WRAPPERS[2], dev, _kernels().sedef_window_sketches,
+                q_keys.data_ptr(), qws.data_ptr(), qwe.data_ptr(),
+                limit_lut.data_ptr(), qk.data_ptr(), s.data_ptr(),
+                limit.data_ptr(), ovf.data_ptr(), B, q_keys.shape[0],
+                limit_lut.shape[0], SQ)
+    return qk, s, limit, ovf
 
 
 def _window_keys(r_keys, a, b, width: int, n_shift: int):
@@ -222,10 +254,11 @@ def _composition_ideals(r_keys, qk_all, s_all, a, b, iv_id,
                           iv_id, RW, 0, n_shift)
 
 
-# the wrappers that launch this module's kernel, with their launch counts;
+# the wrappers that launch this module's kernels, with their launch counts;
 # counted through this tuple, so that a caller that wraps the module's
 # functions (chip_smoke.py's op timer) leaves the counts alone
-KERNEL_WRAPPERS = (_span_intersections, _composition_ideals)
+KERNEL_WRAPPERS = (_span_intersections, _composition_ideals,
+                   _window_sketches)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
 

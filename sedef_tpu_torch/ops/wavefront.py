@@ -490,9 +490,14 @@ def _kernels():
                                            + [ci] * 8 + [vp]),
                     "sedef_fill_variant_clusters": (
                         [ctypes.c_char_p] + [ci] * 2 + [ctypes.POINTER(ci)]),
-                    # stage 1's engines (ops/roll_engine.py, prefilter.py)
+                    # stage 1's engines (ops/roll_engine.py, prefilter.py,
+                    # winnow_device.py) and the mesh step's gate
+                    # (parallel/mesh.py)
                     "sedef_roll_batch": [vp] * 14 + [ci] * 11 + [vp],
                     "sedef_window_ideals": [vp] * 7 + [ci] * 6 + [vp],
+                    "sedef_window_sketches": [vp] * 8 + [ci] * 4 + [vp],
+                    "sedef_device_index": [vp] * 7 + [ci] * 7 + [vp],
+                    "sedef_qgram_scores": [vp] * 3 + [ci] * 2 + [vp],
                 }
                 for name, argtypes in sigs.items():
                     fn = getattr(lib, name)

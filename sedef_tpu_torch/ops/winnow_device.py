@@ -26,6 +26,11 @@ codes of left context (winnowing is position-local).  The minimizer
 capacity of a segment is 1/6 of its k-mer count (the quirky winnow emits
 ~5.6 % of positions on DNA); on overflow the caller falls back to the host
 scan.
+
+On a card a segment is one call of ``csrc/device_index.cu`` (three
+launches: tile counts, their scan, the ordered write), a block a tile of
+2,048 positions with its halo in shared memory; the steps above are the
+plain version, ``_device_index_torch``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .wavefront import _check, _kernels, _launch, _same_device
 from .winnow import STATUS_ALL_LOWERCASE, STATUS_HAS_N, STATUS_HAS_UPPERCASE
 
 INF32 = 2**31 - 1
@@ -70,9 +76,11 @@ def _windowed_or(bits: torch.Tensor, k: int, nk: int) -> torch.Tensor:
     return torch.maximum(m[:nk], m[k - s:k - s + nk])
 
 
-def _device_index(code: torch.Tensor, cls: torch.Tensor, nk_valid: int,
-                  k: int, w: int, cap: int, drop: int = 0):
-    """code, cls: (n,) uint8 on the device.  Returns (count, locs, keys):
+def _device_index_torch(code: torch.Tensor, cls: torch.Tensor,
+                        nk_valid: int, k: int, w: int, cap: int,
+                        drop: int = 0):
+    """``_device_index``' plain version.  code, cls: (n,) uint8 on the
+    device.  Returns (count, locs, keys):
     count a 0-d int32 tensor, locs and keys (cap,) int32, nk/INF-padded
     past ``count`` (and cut at ``cap`` when count > cap).
 
@@ -126,6 +134,52 @@ def _device_index(code: torch.Tensor, cls: torch.Tensor, nk_valid: int,
     mkeys = torch.where(valid, keys[torch.clamp(locs, max=nk - 1).long()],
                         INF32)
     return count, locs, mkeys
+
+
+# positions a block of csrc/device_index.cu, and the widest window its
+# shared memory holds
+_INDEX_TILE = 2048
+_INDEX_MAX_W = 1024
+
+
+def _device_index(code: torch.Tensor, cls: torch.Tensor, nk_valid: int,
+                  k: int, w: int, cap: int, drop: int = 0):
+    """One segment's minimizers, as ``_device_index_torch``: on CUDA
+    tensors one call of ``csrc/device_index.cu`` on the current stream
+    (three launches, no synchronisation), on CPU tensors the plain
+    version."""
+    dev = _same_device(code, cls)
+    if dev.type == "cpu":
+        return _device_index_torch(code, cls, nk_valid, k, w, cap, drop)
+    _check(code, torch.uint8, 1, "code")
+    _check(cls, torch.uint8, 1, "cls")
+    n = code.shape[0]
+    if cls.shape[0] != n:
+        raise ValueError("code and cls must have one length")
+    if not 1 <= k <= 14:
+        raise ValueError(f"k {k} is not in [1, 14] (packed int32 keys)")
+    if not 1 <= w <= _INDEX_MAX_W:
+        raise ValueError(f"w {w} is not in [1, {_INDEX_MAX_W}]")
+    if n < k or cap < 0:
+        raise ValueError(f"a segment of {n} codes holds no {k}-mer, or "
+                         f"cap {cap} < 0")
+    nb = -(-(n - k + 1) // _INDEX_TILE)
+    scratch = torch.empty(2 * nb, dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    locs = torch.empty(cap, dtype=torch.int32, device=dev)
+    keys = torch.empty(cap, dtype=torch.int32, device=dev)
+    _launch(KERNEL_WRAPPERS[0], dev, _kernels().sedef_device_index,
+            code.data_ptr(), cls.data_ptr(), scratch.data_ptr(),
+            scratch[nb:].data_ptr(), count.data_ptr(), locs.data_ptr(),
+            keys.data_ptr(), n, int(nk_valid), k, w, cap, int(drop), nb)
+    return count, locs, keys
+
+
+# the wrapper that launches this module's kernel, with its launch count;
+# counted through this tuple, so that a caller that wraps the module's
+# ``_device_index`` (chip_smoke.py's op timer) leaves the count alone
+KERNEL_WRAPPERS = (_device_index,)
+_device_index.launches = 0
 
 
 def _run_segments(code: torch.Tensor, cls: torch.Tensor, k: int, w: int):

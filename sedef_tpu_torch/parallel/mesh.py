@@ -51,9 +51,10 @@ def make_mesh(n_devices: int | None = None, device_type: str = "cuda"):
                             mesh_dim_names=AXES)
 
 
-def qgram_scores(codes_a: torch.Tensor, codes_b: torch.Tensor
-                 ) -> torch.Tensor:
-    """Batched shared-q-gram counts: (..., W) uint8 code windows ->
+def qgram_scores_torch(codes_a: torch.Tensor, codes_b: torch.Tensor
+                       ) -> torch.Tensor:
+    """``qgram_scores``' plain version.  Batched shared-q-gram counts:
+    (..., W) uint8 code windows ->
     (...,) int32 shared 5-gram histogram intersection (filter.cc:55-91
     as a scatter-add over 1024 bins), on the windows' device.  Grams
     outside the bins (codes above 3) are dropped, as the reference's
@@ -80,6 +81,38 @@ def qgram_scores(codes_a: torch.Tensor, codes_b: torch.Tensor
 
     return torch.minimum(hist(grams(codes_a)),
                          hist(grams(codes_b))).sum(-1, dtype=torch.int32)
+
+
+def qgram_scores(codes_a: torch.Tensor, codes_b: torch.Tensor
+                 ) -> torch.Tensor:
+    """The shared-q-gram counts of ``qgram_scores_torch``: on CUDA tensors
+    one launch of ``csrc/qgram.cu`` on the current stream (a block a pair,
+    no synchronisation), on CPU tensors the plain version."""
+    dev = wf._same_device(codes_a, codes_b)
+    if dev.type == "cpu":
+        return qgram_scores_torch(codes_a, codes_b)
+    nd = codes_a.dim()
+    wf._check(codes_a, torch.uint8, nd, "codes_a")
+    wf._check(codes_b, torch.uint8, nd, "codes_b")
+    if nd < 1 or codes_b.shape != codes_a.shape:
+        raise ValueError("codes_a and codes_b must be windows of one shape")
+    W = codes_a.shape[-1]
+    if W < QG - 1:
+        raise ValueError(f"windows of {W} codes: the plain version takes "
+                         f"{QG - 1} or more")
+    lead = codes_a.shape[:-1]
+    out = torch.empty(lead, dtype=torch.int32, device=dev)
+    if out.numel():
+        wf._launch(KERNEL_WRAPPERS[0], dev, wf._kernels().sedef_qgram_scores,
+                   codes_a.data_ptr(), codes_b.data_ptr(), out.data_ptr(),
+                   out.numel(), W)
+    return out
+
+
+# the wrapper that launches this module's kernel, with its launch count;
+# counted through this tuple, as the ops modules' wrappers are
+KERNEL_WRAPPERS = (qgram_scores,)
+qgram_scores.launches = 0
 
 
 def _collective_device(mesh) -> torch.device:

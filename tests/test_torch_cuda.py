@@ -819,3 +819,98 @@ def test_stage1_window_ideals_kernel_matches_plain(dev):
         want = plain(*args)
         assert got.dtype == want.dtype and torch.equal(got, want), fn
         assert (want == pf.INF32).any() and (want > 0).any()
+
+
+def test_stage1_window_sketches_kernel_matches_plain(dev):
+    """``csrc/window_sketches.cu`` against its plain version: plan-like
+    windows, empty ones, qwe < qws, windows past SQ and past the keys'
+    end, duplicate-heavy windows, at SQ 160 and 48, a short limit table."""
+    from sedef_tpu_torch.ops import prefilter as pf
+    rng = np.random.default_rng(12)
+    nq = 200_000
+    q_keys = rng.integers(0, 1 << 26, nq).astype(np.int32)
+    q_keys[1000:1300] = rng.integers(0, 5, 300)
+    qws = rng.integers(0, nq - 300, 20_000)
+    qwe = qws + rng.integers(-5, 200, 20_000)
+    qws = np.r_[qws, 1000, 1100, nq - 50, 5, 1000]
+    qwe = np.r_[qwe, 1170, 1100, nq + 40, 0, 1400]
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    for SQ, n_lut in ((160, 321), (48, 30)):
+        args = (T(q_keys), T(qws), T(qwe),
+                T(rng.integers(0, 100, n_lut)))
+        before = pf._window_sketches.launches
+        got = pf._window_sketches(*args, SQ=SQ)
+        torch.cuda.synchronize()
+        assert pf._window_sketches.launches == before + 1
+        want = pf._window_sketches_torch(*args, SQ=SQ)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        assert want[3].any() and (want[1] == 0).any()
+
+
+def test_stage1_device_index_kernel_matches_plain(dev):
+    """``csrc/device_index.cu`` against its plain version on one segment
+    each: a first and a continuation segment of soft-masked sequence with
+    N runs, a homopolymer past cap, nk_valid cut short, k 5 w 1, k 14 w
+    40."""
+    from sedef_tpu_torch.ops import dna
+    from sedef_tpu_torch.ops import winnow_device as wd
+    rng = np.random.default_rng(5)
+    seq = "".join(rng.choice(list("ACGTacgtN"), 300_000))
+    code, cls = dna.encode(seq)
+    homo = dna.encode("T" * 50_000)
+    cases = [((code, cls), 300_000 - 11, 12, 16, 0),
+             ((code, cls), 300_000 - 11, 12, 16, 16),
+             (homo, 50_000 - 11, 12, 16, 0),
+             ((code, cls), 100_000, 12, 16, 0),
+             ((code, cls), 300_000 - 4, 5, 1, 0),
+             ((code, cls), 300_000 - 13, 14, 40, 3000)]
+    for (c, cl), nk_valid, k, w, drop in cases:
+        args = (torch.from_numpy(c).to(dev), torch.from_numpy(cl).to(dev),
+                nk_valid, k, w, (len(c) - k + 1) // 6, drop)
+        before = wd._device_index.launches
+        got = wd._device_index(*args)
+        torch.cuda.synchronize()
+        assert wd._device_index.launches == before + 1
+        want = wd._device_index_torch(*args)
+        for g, x in zip(got, want):
+            assert g.dtype == x.dtype and torch.equal(g, x), (k, w, drop)
+    assert int(want[0]) > 0 and int(got[0]) > 0
+
+
+@pytest.mark.parametrize("top,shape", [(4, (3, 5, 128)), (256, (7, 64)),
+                                       (5, (16_384, 128)), (4, (9, 5))])
+def test_qgram_scores_kernel_matches_plain(dev, top, shape):
+    """``csrc/qgram.cu`` against its plain version: codes 0-3, 0-4 and
+    0-255, leading dims, one gram a window (W = 5)."""
+    from sedef_tpu_torch.parallel import mesh
+    rng = np.random.default_rng(top)
+    a = rng.integers(0, top, shape).astype(np.uint8)
+    b = a.copy()
+    flip = rng.random(shape) < 0.1
+    b[flip] = rng.integers(0, top, int(flip.sum()))
+    a, b = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    before = mesh.qgram_scores.launches
+    got = mesh.qgram_scores(a, b)
+    torch.cuda.synchronize()
+    assert mesh.qgram_scores.launches == before + 1
+    want = mesh.qgram_scores_torch(a, b)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_stage1_wrappers_reject_cpu_cuda_mix(dev):
+    from sedef_tpu_torch.ops import prefilter as pf
+    from sedef_tpu_torch.ops import winnow_device as wd
+    from sedef_tpu_torch.parallel import mesh
+    g = torch.zeros(64, dtype=torch.int32, device=dev)
+    c = torch.zeros(64, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        pf._window_sketches(g, g, c, g, SQ=160)
+    u8 = torch.zeros(64, dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        wd._device_index(u8.to(dev), u8, 53, 12, 16, 8)
+    with pytest.raises(ValueError):
+        mesh.qgram_scores(u8.reshape(4, 16).to(dev), u8.reshape(4, 16))

@@ -120,6 +120,78 @@ def test_qgram_scores_match_host(W):
         np.asarray(ref_mesh.qgram_scores(a, b)))
 
 
+@pytest.mark.parametrize("top,shape", [(5, (4, 5)), (5, (2, 3, 64)),
+                                       (256, (3, 128)), (256, (7, 5))])
+def test_qgram_scores_wrapper_on_cpu_is_plain_and_reference(top, shape):
+    """On CPU tensors ``qgram_scores`` is its plain version and equals the
+    reference's, values and dtypes: codes 0-4 and 0-255 (grams past the
+    bins dropped), one gram (W = 5), leading dims; no kernel launched."""
+    rng = np.random.default_rng(top + shape[-1])
+    a = rng.integers(0, top, shape).astype(np.uint8)
+    b = a.copy()
+    flip = rng.random(shape) < 0.3
+    b[flip] = rng.integers(0, top, int(flip.sum()))
+    before = mesh.qgram_scores.launches
+    T = torch.from_numpy
+    got = mesh.qgram_scores(T(a), T(b))
+    assert torch.equal(got, mesh.qgram_scores_torch(T(a), T(b)))
+    want = np.asarray(ref_mesh.qgram_scores(a, b))
+    assert got.dtype == torch.int32 and want.dtype == np.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert mesh.qgram_scores.launches == before
+
+
+def test_qgram_scores_wrapper_refuses_other_devices():
+    m = torch.zeros((2, 16), dtype=torch.uint8, device="meta")
+    c = torch.zeros((2, 16), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        mesh.qgram_scores(m, m)
+    with pytest.raises(ValueError):
+        mesh.qgram_scores(c, m)
+
+
+def qgram_model(a, b):
+    """``csrc/qgram.cu`` pair by pair: a's grams (uint32 shift-or) counted
+    into 1,024 bins, then each of b's grams, in the block's thread order,
+    takes one from its bin and counts a match where the bin held more than
+    0; grams of 1,024 and above are dropped."""
+    lead = a.shape[:-1]
+    a2 = a.reshape(-1, a.shape[-1]).astype(np.uint32)
+    b2 = b.reshape(-1, b.shape[-1]).astype(np.uint32)
+    n = a2.shape[1] - filt.QG + 1
+    out = np.zeros(a2.shape[0], np.int32)
+    for r in range(a2.shape[0]):
+        ga = np.zeros(max(n, 0), np.uint32)
+        gb = np.zeros(max(n, 0), np.uint32)
+        for j in range(filt.QG):
+            ga = (ga << np.uint32(2)) | a2[r, j:j + n]
+            gb = (gb << np.uint32(2)) | b2[r, j:j + n]
+        hist = np.zeros(filt.QSZ, np.int64)
+        np.add.at(hist, ga[ga < filt.QSZ], 1)
+        order = np.argsort(np.arange(n) % 128, kind="stable")
+        for g in gb[order]:
+            if g < filt.QSZ:
+                out[r] += hist[g] > 0
+                hist[g] -= 1
+    return out.reshape(lead)
+
+
+@pytest.mark.parametrize("top,W", [(4, 128), (5, 64), (256, 40), (4, 5)])
+def test_qgram_model_matches_plain(top, W):
+    """The kernel's decrement count against the plain version's minimum
+    of two histograms."""
+    rng = np.random.default_rng(W)
+    a = rng.integers(0, 4, (6, W)).astype(np.uint8)
+    plant = rng.random(a.shape) < 0.2
+    a[plant] = rng.integers(0, top, int(plant.sum()))
+    b = a.copy()
+    flip = rng.random(a.shape) < 0.1
+    b[flip] = rng.integers(0, 4, int(flip.sum()))
+    want = mesh.qgram_scores_torch(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_array_equal(qgram_model(a, b), want.numpy())
+    assert (want.numpy() > 0).any()
+
+
 def test_multichip_step_runs(tmp_path):
     """4 gloo ranks in a 2x2 mesh, each running the step on its shard:
     equal to the reference's build_multichip_step on its CPU mesh of the

@@ -336,18 +336,6 @@ def test_window_ideal_wrappers_on_cpu_are_plain_and_reference(seed, rate):
     assert [w.launches for w in pf.KERNEL_WRAPPERS] == before
 
 
-def test_window_ideal_wrappers_refuse_other_devices():
-    m = torch.zeros(4, dtype=torch.int32, device="meta")
-    m2 = torch.zeros(4, 160, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError):
-        pf._composition_ideals(m, m2, m, m, m, m, RW=192, n_shift=24)
-    with pytest.raises(ValueError):
-        pf._span_intersections(m, m2, m, m, SA=1024, n_shift=24)
-    c = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(ValueError):
-        pf._span_intersections(c, m2, c, c, SA=1024, n_shift=24)
-
-
 def window_ideals_model(rk, qk_all, s_all, a, b, iv_id, width, s_const,
                         n_shift):
     """``csrc/window_ideals.cu`` row by row in NumPy: the range's keys
@@ -390,3 +378,127 @@ def test_window_ideals_model_matches_plain(seed, rate):
         pf._composition_ideals_torch(T(rk), T(qk_all), T(s_all), T(a),
                                      T(b), T(iv_id), RW=192,
                                      n_shift=2 * K).numpy())
+
+
+def _sketch_inputs(seed):
+    """Query keys with duplicate-heavy stretches, and query windows:
+    plan-like rows, an empty window, qwe < qws, windows of more than SQ
+    keys, a duplicate-heavy window, a window past the keys' end.  As numpy
+    int32 arrays (q_keys, qws, qwe)."""
+    rng = np.random.default_rng(seed)
+    nq = 3000
+    q_keys = rng.integers(0, 1 << 26, nq).astype(np.int32)
+    q_keys[1000:1300] = rng.integers(0, 5, 300)
+    q_keys[2000:2100] = 7
+    qws = rng.integers(0, nq - 200, 40)
+    qwe = qws + rng.integers(1, 120, 40)
+    qws = np.r_[qws, 500, 600, 100, 900, 1000, 2000, nq - 50, 0]
+    qwe = np.r_[qwe, 500, 590, 400, 1061, 1170, 2100, nq + 30, 160]
+    return q_keys, qws.astype(np.int32), qwe.astype(np.int32)
+
+
+@pytest.mark.parametrize("seed,lut_len", [(0, 321), (1, 40)])
+def test_window_sketches_wrapper_on_cpu_is_plain_and_reference(seed,
+                                                               lut_len):
+    """On CPU tensors ``_window_sketches`` is its plain version and equals
+    the reference's jitted op, values and dtypes, on the edge windows of
+    ``_sketch_inputs`` (and a limit table shorter than SQ); no kernel is
+    launched."""
+    q_keys, qws, qwe = _sketch_inputs(seed)
+    lut = relaxed_jaccard_table(lut_len - 1, K, DEFAULT).astype(np.int32)
+    T = torch.from_numpy
+    before = [w.launches for w in pf.KERNEL_WRAPPERS]
+    got = pf._window_sketches(T(q_keys), T(qws), T(qwe), T(lut), SQ=160)
+    plain = pf._window_sketches_torch(T(q_keys), T(qws), T(qwe), T(lut),
+                                      SQ=160)
+    want = ref_pf._window_sketches(q_keys, qws, qwe, lut, SQ=160)
+    for g, p, w in zip(got, plain, want):
+        assert torch.equal(g, p)
+        _eq(g, w)
+    s, ovf = got[1].numpy(), got[3].numpy()
+    assert (s == 0).sum() >= 2 and ovf.sum() >= 2 and s.max() == 160
+    assert [w.launches for w in pf.KERNEL_WRAPPERS] == before
+
+
+def test_window_ideal_wrappers_refuse_other_devices():
+    m = torch.zeros(4, dtype=torch.int32, device="meta")
+    m2 = torch.zeros(4, 160, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        pf._composition_ideals(m, m2, m, m, m, m, RW=192, n_shift=24)
+    with pytest.raises(ValueError):
+        pf._span_intersections(m, m2, m, m, SA=1024, n_shift=24)
+    c = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        pf._span_intersections(c, m2, c, c, SA=1024, n_shift=24)
+    with pytest.raises(ValueError):
+        pf._window_sketches(m, m, m, m, SQ=160)
+    with pytest.raises(ValueError):
+        pf._window_sketches(c, c, m, c, SQ=160)
+
+
+def bitonic_model(x):
+    """``group_bitonic`` (csrc/row_sort.cuh) on a power-of-two row: the
+    same compare-exchange network, index for index (the pairs of one step
+    are disjoint, so a step is one vectorised exchange)."""
+    x = x.copy()
+    n = len(x)
+    i = np.arange(n // 2)
+    k = 2
+    while k <= n:
+        j = k >> 1
+        while j > 0:
+            lo = ((i & ~(j - 1)) << 1) | (i & (j - 1))
+            hi = lo + j
+            u, v = x[lo], x[hi]
+            swap = (u > v) == ((lo & k) == 0)
+            x[lo], x[hi] = np.where(swap, v, u), np.where(swap, u, v)
+            j >>= 1
+        k <<= 1
+    return x
+
+
+def window_sketches_model(q_keys, qws, qwe, lut, SQ):
+    """``csrc/window_sketches.cu`` row by row: the gathered keys (the
+    first SQ of the window, an index past the keys clamped) sorted by the
+    bitonic network over the next power of two above their count, then
+    the warp's compaction, 32 lanes a step: a key is kept where it is not
+    INF and differs from its left neighbour, and lands at the kept keys of
+    the earlier steps plus the kept lanes below it (ballot and popc)."""
+    B = len(qws)
+    qk = np.full((B, SQ), pf.INF32, np.int32)
+    s_out = np.zeros(B, np.int32)
+    for r in range(B):
+        n = int(np.clip(int(qwe[r]) - int(qws[r]), 0, SQ))
+        n2 = 2
+        while n2 < n:
+            n2 <<= 1
+        x = np.full(n2, pf.INF32, np.int32)
+        x[:n] = q_keys[np.clip(qws[r] + np.arange(n), 0, len(q_keys) - 1)]
+        x = bitonic_model(x)
+        s = 0
+        for base in range(0, n2, 32):
+            j = base + np.arange(32)
+            v = np.where(j < n2, x[np.minimum(j, n2 - 1)], pf.INF32)
+            left = x[np.clip(j - 1, 0, n2 - 1)]
+            keep = (v != pf.INF32) & ((j == 0) | (left != v))
+            below = np.cumsum(keep) - keep  # popc(ballot & lanes below)
+            qk[r, s + below[keep]] = v[keep]
+            s += int(keep.sum())
+        s_out[r] = s
+    limit = lut[np.minimum(s_out, len(lut) - 1)]
+    return qk, s_out, limit, (qwe - qws) > SQ
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_window_sketches_model_matches_plain(seed):
+    """The kernel's sort network and ballot compaction against the plain
+    version's two row sorts, on the edge windows, at SQ 160 and 48."""
+    q_keys, qws, qwe = _sketch_inputs(seed)
+    lut = relaxed_jaccard_table(320, K, DEFAULT).astype(np.int32)
+    T = torch.from_numpy
+    for SQ in (160, 48):
+        want = pf._window_sketches_torch(T(q_keys), T(qws), T(qwe),
+                                         T(lut), SQ=SQ)
+        for g, w in zip(window_sketches_model(q_keys, qws, qwe, lut, SQ),
+                        want):
+            np.testing.assert_array_equal(g, w.numpy())

@@ -154,3 +154,138 @@ def test_minimizer_index_device_build_without_native_winnow(
     assert k.dtype == l.dtype == torch.int32
     assert dev.device_arrays("cpu")[0] is k  # cached per device
     np.testing.assert_array_equal(k.numpy(), host.keys.astype(np.int32))
+
+
+def _segment(case):
+    """One segment's arguments (code, cls, nk_valid, k, w, cap, drop) as
+    ``_run_segments`` passes them, for the edge cases: the ``_MIN_PAD``
+    segment of a small input, a continuation segment (drop = w), a
+    homopolymer whose emits pass cap, nk_valid cut short, a drop past the
+    first tile and a window of one."""
+    k, w = 12, 16
+    if case == "min_pad":
+        code, cls = dna.encode(_random_seq(5, wd._MIN_PAD))
+        return code, cls, wd._MIN_PAD - k + 1, k, w, \
+            (wd._MIN_PAD - k + 1) // 6, 0
+    if case == "overflow":
+        code, cls = dna.encode("T" * 3000)
+        return code, cls, 3000 - k + 1, k, w, (3000 - k + 1) // 6, 0
+    code, cls = dna.encode(_random_seq(6, 6000))
+    nk = 6000 - k + 1
+    if case == "continuation":
+        return code, cls, nk, k, w, nk // 6, w
+    if case == "nk_valid_short":
+        return code, cls, 3000, k, w, nk // 6, 0
+    if case == "drop_past_tile":
+        return code, cls, nk, 11, 8, nk // 6, 3000
+    return code, cls, nk, 5, 1, nk // 3, 0  # "w1"
+
+
+SEGMENT_CASES = ["min_pad", "continuation", "overflow", "nk_valid_short",
+                 "drop_past_tile", "w1"]
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES[:4])
+def test_device_index_wrapper_on_cpu_is_plain_and_reference(case):
+    """On CPU tensors ``_device_index`` is its plain version and equals
+    the reference's jitted op, values and dtypes (count past cap
+    included); no kernel is launched."""
+    code, cls, nk_valid, k, w, cap, drop = _segment(case)
+    T = torch.from_numpy
+    before = wd._device_index.launches
+    got = wd._device_index(T(code), T(cls), nk_valid, k, w, cap, drop)
+    plain = wd._device_index_torch(T(code), T(cls), nk_valid, k, w, cap,
+                                   drop)
+    want = ref_wd._device_index(code, cls, np.int32(nk_valid), k, w, cap,
+                                np.int32(drop))
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+    _assert_same([g.numpy() for g in got], want)
+    assert (int(got[0]) > cap) == (case == "overflow")
+    assert wd._device_index.launches == before
+
+
+def test_device_index_wrapper_refuses_other_devices():
+    m = torch.zeros(64, dtype=torch.uint8, device="meta")
+    c = torch.zeros(64, dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        wd._device_index(m, m, 53, 12, 16, 8)
+    with pytest.raises(ValueError):
+        wd._device_index(c, m, 53, 12, 16, 8)
+
+
+def device_index_model(code, cls, nk_valid, k, w, cap, drop,
+                       threads=256, scan_threads=1024):
+    """``csrc/device_index.cu`` in NumPy: tiles of ``_INDEX_TILE``
+    positions, each with the w keys before it (INF before position 0),
+    keys by a k-step uint32 loop, window minima by a w-step loop, start
+    from the first tile (the last change point at p <= w) unless drop > 0;
+    the tile counts, their scan by ``scan_threads`` threads of contiguous
+    chunks; each tile's write: a thread's run of TILE / threads positions
+    at the tile's offset plus the block's exclusive scan of the runs; the
+    slots past the count nk and INF."""
+    TILE, INF = wd._INDEX_TILE, wd.INF32
+    n = len(code)
+    nk = n - k + 1
+    nb = -(-nk // TILE)
+    emits, tkeys = [], []
+    for t in range(nb):
+        base, lo = t * TILE, t * TILE - w
+        q = lo + np.arange(TILE + w + k - 1)
+        held = (q >= 0) & (q < n)
+        code_s = np.where(held, code[np.clip(q, 0, n - 1)], 0)
+        cls_s = np.where(held, cls[np.clip(q, 0, n - 1)], 0)
+        i = np.arange(TILE + w)
+        h = np.zeros(TILE + w, np.uint32)
+        has_n = np.zeros(TILE + w, bool)
+        has_u = np.zeros(TILE + w, bool)
+        for j in range(k):
+            h = (h << np.uint32(2)) | code_s[i + j].astype(np.uint32)
+            has_n |= cls_s[i + j] == 2
+            has_u |= cls_s[i + j] == 0
+        status = np.where(has_n, 2, np.where(has_u, 0, 1)).astype(np.uint32)
+        keys = ((status << np.uint32(2 * k)) | h).view(np.int32)
+        keys = np.where((lo + i >= 0) & (lo + i < nk), keys, INF)
+        p = base + np.arange(TILE)
+        m = np.full(TILE, INF, np.int32)
+        for j in range(w):
+            m = np.minimum(m, keys[np.arange(TILE) + j])
+        cm = (keys[w:w + TILE] <= m) & (p < nk) & (p < nk_valid)
+        last = int(p[cm & (p <= w)].max()) if (cm & (p <= w)).any() else -1
+        start = drop if drop > 0 else last
+        emits.append(cm & (p >= start))
+        tkeys.append(keys[w:w + TILE])
+    counts = np.array([e.sum() for e in emits], np.int64)
+    per = -(-nb // scan_threads)
+    chunk = np.array([counts[c * per:(c + 1) * per].sum()
+                      for c in range(scan_threads)])
+    before = np.cumsum(chunk) - chunk
+    off = np.concatenate([before[c] + np.cumsum(counts[c * per:(c + 1) * per])
+                          - counts[c * per:(c + 1) * per]
+                          for c in range(scan_threads)])[:nb]
+    total = int(chunk.sum())
+    locs = np.full(cap, nk, np.int32)
+    keys_out = np.full(cap, INF, np.int32)
+    for t in range(nb):
+        run = emits[t].reshape(threads, -1).astype(np.int64)
+        tsum = run.sum(1)
+        slot = off[t] + (np.cumsum(tsum) - tsum)[:, None] \
+            + np.cumsum(run, 1) - run
+        sel = (run > 0) & (slot < cap)
+        pos = t * TILE + np.arange(TILE).reshape(threads, -1)
+        locs[slot[sel]] = pos[sel]
+        keys_out[slot[sel]] = tkeys[t].reshape(threads, -1)[sel]
+    return np.int32(total), locs, keys_out
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_device_index_model_matches_plain(case):
+    """The kernel's tiling, start rule and ordered compaction against the
+    plain version's cumsum and scatter."""
+    code, cls, nk_valid, k, w, cap, drop = _segment(case)
+    want = wd._device_index_torch(torch.from_numpy(code),
+                                  torch.from_numpy(cls), nk_valid, k, w,
+                                  cap, drop)
+    got = device_index_model(code, cls, nk_valid, k, w, cap, drop)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g, x.numpy())
