@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch + CUDA port (``sedef_tpu_torch``) on one card.
 
     python3 chip_smoke.py [--spread N] [--profile] [--main-only]
-                          [--dense-mbp N]
+                          [--dense-mbp N] [--prefilter-split]
 
 Phases, one line each or more (any failure exits non-zero, with no result
 line):
@@ -70,13 +70,22 @@ line):
    and then with the roll engine forced on (``ROLL_DEVICE_MIN = 0``),
    seeds.bed byte-identical to the host route's, with the intervals
    planned and pruned in each phase, the composition rows, the device ms
-   from dispatch to collect and the stage-1 walls; every query-sketch and
-   window-ideal call of the prefilter runs (kernels
-   ``csrc/window_sketches.cu``, ``csrc/window_ideals.cu``) against its
-   plain version on the same tensors, and one full batch of sketches
-   (131,072 rows x SQ 160), timed; one ``run_pipeline(jobs=1)`` of
-   e2e-20M under the prefilter gates ``devcal.apply`` installs, beds equal
-   to the host route's; the roll engine (kernel ``csrc/roll_engine.cu``)
+   of the dispatches and the stage-1 walls, and the prefilter's host time
+   a dispatch split into plan, upload, launch, pull and verdicts with its
+   launches, uploads, pulls and bytes (``PrefilterSplit``); every launch
+   of the per-interval kernel (``csrc/prefilter_intervals.cu``) in the
+   prefilter runs against its plain version on the same tensors, the
+   largest timed; the plain version's rows of e2e-20M (query sketches,
+   span rows, composition rows) through the three per-row kernels
+   (``csrc/window_sketches.cu``, ``csrc/window_ideals.cu``, on no path
+   now) against its outputs, and one full batch of sketches (131,072 rows
+   x SQ 160), timed; compute-sanitizer's memcheck and racecheck of the
+   per-interval kernel on a small plan, where the tool runs on the card;
+   one ``run_pipeline(jobs=1)`` of e2e-20M under the prefilter gates
+   ``devcal.apply`` installs, beds equal to the host route's, its
+   launches the stage-1 kernels' main-path launches, its prefilter calls
+   checked and split as above; the roll engine (kernel
+   ``csrc/roll_engine.cu``), then the prefilter,
    forced on for the dense genome's first chromosome (25 Mbp at the
    default 50) against itself and its reverse complement, seeds equal to
    the host route's; one full batch (1,024 intervals, W 512) of each
@@ -108,7 +117,11 @@ line):
    alternated; with ``--profile``: a ``torch.profiler`` trace of each card
    run (device busy time, kernels, copies); with ``--main-only``: phases 1,
    2, 5 and 6 alone (the walls of one tree, to set beside another's on
-   the same card and host; no kernel summary and no result line).
+   the same card and host; no kernel summary and no result line); with
+   ``--prefilter-split``: phases 1 and 2 and 5c's whole-job runs and
+   calibrated-gates run alone, their walls and prefilter host split, no
+   check beyond seeds equal (copied into another checkout, it times that
+   checkout's prefilter).
 
 Each kernel's bound in the summary is the larger of its integer operations
 over the card's int32 peak (SMs x 64 lanes x the SM clock ``nvidia-smi``
@@ -121,11 +134,15 @@ instruction), and its line also carries the one-lane and the byte bound.
 No single PyTorch call computes an affine-gap
 direction matrix or its traceback, an interval's roll, a window's ideal, a
 window's distinct sorted keys, a winnowed minimizer index or a q-gram
-histogram intersection, so ``library_ms`` is null throughout.  A stage-1
+histogram intersection, or an interval's prefilter verdict, so
+``library_ms`` is null throughout.  A stage-1
 kernel's bound counts the work its inputs need (``_least_work``): 16
 operations a sketch update of a roll; for a window-ideal row of n keys n
 log2 n comparisons, a search of the query row and a scan element a key;
 for a query sketch of n keys n log2 n comparisons and a compaction step;
+for an interval's verdict its sketch, its span's keys searched in it,
+and for phase B's pruned intervals every window ranked (one window for
+an interval left alive);
 16 a k-mer position of the index build; 12 a q-gram;
 ``bound_formula_ms`` beside it holds the call to ``_op_costs``' formulas,
 the plain versions' W- or width-wide row passes, by which the stage-1 op
@@ -1445,6 +1462,19 @@ def _op_costs():
                 nb(r_keys, qk_all, s_all, a, b, iv_id) + N * 4,
                 (N, SQ + RW))
 
+    def interval_verdicts(q_keys, r_keys, r_locs, limit_lut, plan, L, SQ, RW,
+                          SA, n_shift, tile=None, out=None):
+        # the plain version's passes: two sketch sorts a row, a span row a
+        # row, and a composition row for each of phase B's windows (their
+        # count from the records)
+        n = plan.shape[1]
+        R = int(out[:, 1].sum()) if out is not None and n else 0
+        return (2 * _sort_ops(n, SQ) + 4 * n * SQ + _sort_ops(n, SA)
+                + _sort_ops(n, SQ + SA) + SCAN_OPS * n * (SQ + SA)
+                + _sort_ops(R, RW) + _sort_ops(R, SQ + RW)
+                + SCAN_OPS * R * (SQ + RW),
+                nb(q_keys, r_keys, r_locs, limit_lut, plan) + 8 * n, (n, R))
+
     def device_index(code, cls, nk_valid, k, w, cap, drop=0):
         import math
         n = code.shape[0]
@@ -1475,6 +1505,7 @@ def _op_costs():
     return {"_window_sketches": window_sketches,
             "_span_intersections": span_intersections,
             "_composition_ideals": composition_ideals,
+            "_interval_verdicts": interval_verdicts,
             "_device_index": device_index, "_roll_batch": roll_batch,
             "qgram_scores": qgram_scores}
 
@@ -1484,13 +1515,15 @@ class OpTimer:
     CUDA-event time around each call (its kernels as the host launched
     them), the summed bound of the calls' work, and the largest rows
     shape of a call.  ``record``: the ops whose calls (arguments and
-    output) are kept, for a later check against their plain versions."""
+    output) are kept, for a later check against their plain versions.
+    An op in ``AFTER`` has its work counted from its output when the timer
+    is read (no wait for the card inside the run)."""
+
+    AFTER = ("_interval_verdicts",)
 
     def __init__(self, record=()):
         from sedef_tpu_torch.ops import prefilter, roll_engine, winnow_device
-        self.mods = {"_window_sketches": prefilter,
-                     "_span_intersections": prefilter,
-                     "_composition_ideals": prefilter,
+        self.mods = {"_interval_verdicts": prefilter,
                      "_device_index": winnow_device,
                      "_roll_batch": roll_engine}
         self.costs = _op_costs()
@@ -1503,6 +1536,7 @@ class OpTimer:
         self.work = {n: [0.0, 0.0] for n in self.mods}
         self.shape = {}
         self.calls = {n: [] for n in self.record}
+        self.after = {n: [] for n in self.AFTER}
 
     def __enter__(self):
         import torch
@@ -1510,10 +1544,8 @@ class OpTimer:
             real = self.real[name] = getattr(mod, name)
 
             def wrapped(*a, _n=name, _f=real, **kw):
-                ops, nbytes, shape = self.costs[_n](*a, **kw)
-                self.work[_n][0] += ops
-                self.work[_n][1] += nbytes
-                self.shape[_n] = max(self.shape.get(_n, shape), shape)
+                if _n not in self.AFTER:
+                    self._count(_n, *self.costs[_n](*a, **kw))
                 e0 = torch.cuda.Event(enable_timing=True)
                 e1 = torch.cuda.Event(enable_timing=True)
                 e0.record()
@@ -1522,10 +1554,17 @@ class OpTimer:
                 self.events[_n].append((e0, e1))
                 if _n in self.record:
                     self.calls[_n].append((a, kw, out))
+                if _n in self.AFTER:
+                    self.after[_n].append((a, kw, out))
                 return out
 
             setattr(mod, name, wrapped)
         return self
+
+    def _count(self, name, ops, nbytes, shape):
+        self.work[name][0] += ops
+        self.work[name][1] += nbytes
+        self.shape[name] = max(self.shape.get(name, shape), shape)
 
     def __exit__(self, *exc):
         for name, mod in self.mods.items():
@@ -1534,6 +1573,10 @@ class OpTimer:
     def read(self) -> dict:
         import torch
         torch.cuda.synchronize()
+        for name, calls in self.after.items():
+            for a, kw, res in calls:
+                self._count(name, *self.costs[name](*a, out=res, **kw))
+            calls.clear()
         out = {}
         for name, evs in self.events.items():
             if evs:
@@ -1551,6 +1594,10 @@ SRC_ROLL = "sedef_tpu_torch/csrc/roll_engine.cu"
 SRC_IDEALS = "sedef_tpu_torch/csrc/window_ideals.cu"
 STAGE1_KERNELS = {
     "_roll_batch": (SRC_ROLL, "sedef_tpu/ops/roll_engine.py:143"),
+    # RollPrefilter.dispatch + collect's flow on the card: its three
+    # programs and the host work between them
+    "_interval_verdicts": ("sedef_tpu_torch/csrc/prefilter_intervals.cu",
+                           "sedef_tpu/ops/prefilter.py:267"),
     "_span_intersections": (SRC_IDEALS, "sedef_tpu/ops/prefilter.py:92"),
     "_composition_ideals": (SRC_IDEALS, "sedef_tpu/ops/prefilter.py:118"),
     "_window_sketches": ("sedef_tpu_torch/csrc/window_sketches.cu",
@@ -1568,6 +1615,11 @@ STAGE1 = {name: {"launches": 0, "max_abs_err": 0, "compared": 0,
                  "library_ms": None} for name in STAGE1_KERNELS}
 # the stage-1 paths a kernel must have been launched on
 STAGE1_PATHS = {name: [] for name in STAGE1_KERNELS}
+# the per-row kernels of the prefilter, which no path launches: the
+# per-interval kernel runs their row code (csrc/window_rows.cuh); they are
+# held against their plain versions on the rows the plain version builds
+ROW_KERNELS = ("_window_sketches", "_span_intersections",
+               "_composition_ideals")
 
 
 def _stage1_wrappers():
@@ -1641,10 +1693,11 @@ def _time_against_plain(name, kernel, plain, args, kw, at):
     p_ms, want = _event_ms(lambda: plain(*args, **kw), reps=1)
     _compare(name, got if isinstance(got, tuple) else (got,),
              want if isinstance(want, tuple) else (want,))
-    ops, nbytes, _ = _op_costs()[name](*args, **kw)
+    extra = {"out": want} if name in OpTimer.AFTER else {}
+    ops, nbytes, _ = _op_costs()[name](*args, **kw, **extra)
     formula = bound(ops, nbytes)
     STAGE1[name].update(ms=k_ms, plain_ms=p_ms, at=at,
-                        **bound(*_least_work(plain, args, kw)),
+                        **bound(*_least_work(plain, args, kw, want)),
                         bound_formula_ms=formula["bound_ms"],
                         bound_formula_by=formula["bound_by"])
     return k_ms, p_ms
@@ -1664,7 +1717,7 @@ INDEX_OPS = 16
 GRAM_OPS = 2 * QG + 2
 
 
-def _least_work(plain, args, kw):
+def _least_work(plain, args, kw, out=None):
     """(ops, bytes) a stage-1 kernel's call needs on these inputs, at the
     least: every input read once and every output written once, and the
     operations the data asks for (a roll: UPDATE_OPS for each sketch
@@ -1673,8 +1726,10 @@ def _least_work(plain, args, kw):
     and a scan element for each; a query sketch: n log2 n comparisons and
     a compaction step for its n gathered keys; the index build:
     INDEX_OPS a k-mer position; the q-gram gate: GRAM_OPS a gram of
-    either window).  ``_op_costs`` holds the same calls to
-    a W- or width-wide pass instead, the plain versions' work."""
+    either window; an interval's verdict, ``_interval_work``).
+    ``_op_costs`` holds the same calls to a W- or width-wide pass
+    instead, the plain versions' work.  ``out``: the plain version's
+    output, for the work that depends on it."""
     import inspect
     import math
 
@@ -1684,6 +1739,9 @@ def _least_work(plain, args, kw):
     def nb(*ts):
         return sum(t.numel() * t.element_size() for t in ts
                    if t is not None)
+
+    if "plan" in a:
+        return _interval_work(a, out)
 
     if "codes_a" in a:  # q-gram scores: a and b's grams
         W = a["codes_a"].shape[-1]
@@ -1722,34 +1780,148 @@ def _least_work(plain, args, kw):
             + nb(lo, hi, iv) + 4 * lo.shape[0])
 
 
-# the ops whose every whole-job call is checked against its plain version
-RECORDED = ("_window_sketches", "_span_intersections", "_composition_ideals")
+def _interval_work(a, rec):
+    """The least work of a ``_interval_verdicts`` call (its arguments
+    bound by name; ``rec`` the plain version's records): each query window
+    not past SQ read and sketched (n log2 n comparisons and a compaction
+    step for its n keys); for each interval that reached phase A its
+    span's keys read and searched in the sketch; for each interval phase B
+    pruned its span's loci read and every window sorted and ranked (n
+    log2 n comparisons, a search of the sketch and a scan element for each
+    of its n keys); for each interval phase B left alive the one window
+    that proves it, counted as its t0 window; the plan read and the
+    records written."""
+    import math
 
+    import torch
 
-def _check_ideal_calls(timer):
-    """Every query-sketch and window-ideal call a whole-job run made, its
-    kernel's outputs against the plain version on the same CUDA tensors;
-    the largest call of each window-ideal op is timed against its plain
-    version (the sketches at a full batch, ``_sketch_batch``)."""
     from sedef_tpu_torch.ops import prefilter as pf
-    done = {}
-    for name in ("_window_sketches", "_span_intersections",
-                 "_composition_ideals"):
-        plain = getattr(pf, name + "_torch")
-        calls = timer.calls.get(name, [])
+    plan, SQ, RW, L = a["plan"], a["SQ"], a["RW"], a["L"]
+    qws, qwe, t0, rws0, steps = (c.long() for c in plan)
+    locs = a["r_locs"].long()
+    code, rows = rec[:, 0], rec[:, 1]
+    nq = (qwe - qws).clamp(0, SQ).double()
+    nq = torch.where(qwe - qws > SQ, 0, nq)
+    ops = float((nq * (torch.log2(nq.clamp(min=2)) + 1)).sum())
+    nbytes = 4 * float(nq.sum()) + 20 * plan.shape[1] + 8 * rec.shape[0]
+    t1 = t0 + steps
+    span_n = (torch.searchsorted(locs, t1 + L) - rws0).clamp(min=0)
+    phase_a = ((code == 1) | (rows > 0)) & (span_n <= a["SA"])
+    na = float(span_n[phase_a].sum())
+    ops += na * math.log2(SQ)
+    nbytes += 4 * na
+
+    def rank_ops(n):
+        n = torch.where(n > RW, 0, n.clamp(min=0)).double()
+        return float((n * (torch.log2(n.clamp(min=2)) + math.log2(SQ)
+                           + SCAN_OPS)).sum())
+
+    pruned_b = torch.nonzero(code == 2).flatten()
+    _, wa, wb = pf._composition_windows(locs, t0, t1, rws0, span_n,
+                                        pruned_b, L)
+    ops += rank_ops(wb - wa)
+    nbytes += 8 * float(span_n[pruned_b].sum())
+    alive = (code == 0) & (rows > 0)
+    w0 = (torch.searchsorted(locs, t0[alive] + L)
+          - torch.searchsorted(locs, t0[alive]))
+    ops += rank_ops(w0)
+    nbytes += 8 * float(w0.clamp(min=0).sum())
+    return ops, nbytes
+
+
+# the ops whose every whole-job call is checked against its plain version
+RECORDED = ("_interval_verdicts",)
+
+
+class _RowSpy:
+    """The plain version's row functions wrapped while the block runs:
+    every call's arguments and output kept, by the per-row kernel they
+    stand for."""
+
+    def __enter__(self):
+        from sedef_tpu_torch.ops import prefilter as pf
+        self.pf, self.real, self.calls = pf, {}, {n: [] for n in ROW_KERNELS}
+        for name in ROW_KERNELS:
+            real = self.real[name] = getattr(pf, name + "_torch")
+
+            def spy(*a, _n=name, _f=real, **kw):
+                out = _f(*a, **kw)
+                self.calls[_n].append((a, kw, out))
+                return out
+            setattr(pf, name + "_torch", spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.pf, name + "_torch", real)
+
+
+def _check_interval_calls(timer, rows=False):
+    """Every ``_interval_verdicts`` call of a run against its plain
+    version on the same CUDA tensors, the largest timed against it.  With
+    ``rows``: the plain version's row-function calls of that run (its
+    query sketches, span rows and composition rows) through the three
+    per-row kernels, each against the plain version's output, the largest
+    call of each timed.  Returns calls checked and the spans' shape."""
+    import contextlib
+
+    import torch
+
+    from sedef_tpu_torch.ops import prefilter as pf
+    name = "_interval_verdicts"
+    calls = timer.calls.get(name, [])
+    spans, b_spans = [], []
+    spy = _RowSpy() if rows else contextlib.nullcontext()
+    with spy:
         for a, kw, out in calls:
-            want = plain(*a, **kw)
-            _compare(name, out if isinstance(out, tuple) else (out,),
-                     want if isinstance(want, tuple) else (want,))
-        if calls and name != "_window_sketches":
-            a, kw, _ = max(calls, key=lambda c: c[0][3].shape[0])
-            if a[3].shape[0] >= STAGE1[name].get("rows", 0):
-                STAGE1[name]["rows"] = a[3].shape[0]
-                _time_against_plain(name, getattr(pf, name), plain, a, kw,
-                                    f"{a[3].shape[0]} rows")
-        done[name] = len(calls)
-        calls.clear()
-    return done
+            want = pf._interval_verdicts_torch(*a, **kw)
+            _compare(name, (out,), (want,))
+            plan = a[4].long()
+            end = torch.searchsorted(a[2].long(), plan[2] + plan[4] + kw["L"])
+            span_n = (end - plan[3]).clamp(min=0)
+            spans.append(span_n)
+            b_spans.append(span_n[want[:, 1] > 0])
+    done = {name: len(calls)}
+    if calls:
+        a, kw, out = max(calls, key=lambda c: c[0][4].shape[1])
+        if a[4].shape[1] >= STAGE1[name].get("rows", 0):
+            STAGE1[name]["rows"] = a[4].shape[1]
+            _time_against_plain(name, pf._interval_verdicts,
+                                pf._interval_verdicts_torch, a, kw,
+                                f"{a[4].shape[1]} intervals, "
+                                f"{int(out[:, 1].sum())} composition rows")
+    for row_name, row_calls in (spy.calls.items() if rows else ()):
+        kernel = getattr(pf, row_name)
+        for a, kw, out in row_calls:
+            got = kernel(*a, **kw)
+            _compare(row_name, got if isinstance(got, tuple) else (got,),
+                     out if isinstance(out, tuple) else (out,))
+        done[row_name] = len(row_calls)
+        if row_calls and row_name != "_window_sketches":
+            a, kw, _ = max(row_calls, key=lambda c: c[0][3].shape[0])
+            if a[3].shape[0] >= STAGE1[row_name].get("rows", 0):
+                STAGE1[row_name]["rows"] = a[3].shape[0]
+                _time_against_plain(row_name, kernel, spy.real[row_name], a,
+                                    kw, f"{a[3].shape[0]} rows")
+    calls.clear()
+    return done, _quantiles(spans), _quantiles(b_spans)
+
+
+def _quantiles(parts) -> dict:
+    """Count, median, 90th and 99th percentiles and largest of the values
+    in ``parts`` (tensors), and how many exceed the kernel's tile."""
+    import torch
+
+    from sedef_tpu_torch.ops import prefilter as pf
+    tile = getattr(pf, "INTERVAL_TILE", 1024)  # a tree before the kernel
+    v = torch.cat(parts).double() if parts else torch.zeros(0)
+    if not v.numel():
+        return {"n": 0}
+    q = torch.quantile(v, torch.tensor([0.5, 0.9, 0.99], dtype=v.dtype,
+                                       device=v.device)).tolist()
+    return {"n": v.numel(), "p50": q[0], "p90": q[1], "p99": q[2],
+            "max": float(v.max()), "sum": float(v.sum()),
+            "past_tile": int((v > tile).sum())}
 
 
 def _stage1_index(fr, names, k, w, timer):
@@ -1823,12 +1995,137 @@ def _stage1_index(fr, names, k, w, timer):
             "kernel_ms": k_ms, "plain_ms": p_ms}
 
 
-def _stage1_whole_job(fr, bins, name, timer):
+class PrefilterSplit:
+    """The host's time in the prefilter's dispatches while the block runs,
+    split by what it does, each part's own time (its callees' taken out):
+    plan (the native search plan, every planned pair), upload (``_upload``
+    calls), launch (calls of the kernel wrappers), pull (copies to the
+    host, and waits on the card's events, inside dispatch and collect),
+    host rows (``_dispatch_compositions`` where a tree has it: the event
+    rows and their bounds on the host), dispatch (the rest of
+    ``RollPrefilter.dispatch``) and verdicts (the rest of
+    ``PendingPrefilter.collect``); uploads, pulls and their bytes.  It
+    wraps names that a tree may lack, so that it times any checkout's
+    prefilter (``--prefilter-split``)."""
+
+    def __init__(self):
+        import torch
+
+        from sedef_tpu_torch.native import lib as native
+        from sedef_tpu_torch.ops import prefilter as pf
+        self.targets = [(native, "search_plan", "plan"),
+                        (pf.RollPrefilter, "dispatch", "dispatch"),
+                        (pf.PendingPrefilter, "collect", "verdicts"),
+                        (pf, "_upload", "upload"), (pf, "_pull", "pull"),
+                        (torch.Tensor, "cpu", "pull"),
+                        (torch.cuda.Event, "synchronize", "pull"),
+                        (pf.RollPrefilter, "_dispatch_compositions", "rows")]
+        self.targets += [(pf, w.__name__, "launch")
+                         for w in pf.KERNEL_WRAPPERS]
+        self.ms = dict.fromkeys(("plan", "upload", "launch", "pull", "rows",
+                                 "dispatch", "verdicts"), 0.0)
+        self.n = dict.fromkeys(self.ms, 0)
+        self.bytes = {"upload": 0, "pull": 0}
+        self.pulls = 0
+        self.stack = []  # [category, callees' seconds] of the open calls
+        self.spans = []  # each dispatch's (L, r_locs, t0, rws0, n_steps)
+
+    def _inside(self) -> bool:
+        return any(c in ("dispatch", "verdicts") for c, _ in self.stack)
+
+    def __enter__(self):
+        import numpy as np
+        self.saved = []
+        for obj, name, cat in self.targets:
+            if not hasattr(obj, name):
+                continue
+            self.saved.append((obj, name, obj.__dict__.get(name)))
+            real = getattr(obj, name)
+
+            def wrapped(*a, _f=real, _cat=cat, _name=name, **kw):
+                if _cat not in ("plan", "dispatch", "verdicts") \
+                        and not self._inside():
+                    return _f(*a, **kw)
+                if _cat == "dispatch":
+                    self.spans.append((a[0].L, a[3], a[6], a[7], a[8]))
+                self.stack.append([_cat, 0.0])
+                t0 = time.perf_counter()
+                try:
+                    out = _f(*a, **kw)
+                finally:
+                    dt = time.perf_counter() - t0
+                    _, inner = self.stack.pop()
+                    self.ms[_cat] += (dt - inner) * 1e3
+                    self.n[_cat] += 1
+                    if self.stack:
+                        self.stack[-1][1] += dt
+                if _cat == "upload":
+                    self.bytes["upload"] += 4 * np.asarray(a[0]).size
+                elif _name in ("cpu", "_pull"):
+                    t = out if _name == "cpu" else a[0]
+                    self.bytes["pull"] += t.numel() * t.element_size()
+                    self.pulls += 1
+                return out
+
+            setattr(obj, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, orig in self.saved:
+            if orig is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, orig)
+
+    def read(self, launches: int) -> dict:
+        """Per dispatch: each part's ms, launches, uploads, pulls and
+        bytes; and the spans of the planned intervals (their minimizers,
+        ``_quantiles``)."""
+        import numpy as np
+        import torch
+        d = max(self.n["dispatch"], 1)
+        out = {"dispatches": self.n["dispatch"], "plans": self.n["plan"],
+               "launches": launches / d, "uploads": self.n["upload"] / d,
+               "pulls": self.pulls / d,
+               "upload_bytes": self.bytes["upload"] / d,
+               "pull_bytes": self.bytes["pull"] / d}
+        out.update({f"{k}_ms": v / d for k, v in self.ms.items()})
+        out["plan_ms"] = self.ms["plan"] / max(self.n["plan"], 1)
+        spans = []
+        for L, locs, t0, rws0, steps in self.spans:
+            locs = (locs.cpu().numpy() if isinstance(locs, torch.Tensor)
+                    else np.asarray(locs))
+            t1 = np.asarray(t0, np.int64) + np.asarray(steps, np.int64)
+            spans.append(torch.from_numpy(np.maximum(
+                np.searchsorted(locs, t1 + L) - np.asarray(rws0, np.int64),
+                0)))
+        out["spans"] = _quantiles(spans)
+        return out
+
+
+def _split_line(name, sp) -> str:
+    return (f"[stage1] prefilter host split {name}: {sp['dispatches']} "
+            f"dispatches ({sp['plans']} pairs planned); per dispatch plan "
+            f"{sp['plan_ms']:.3f} ms a pair, upload {sp['upload_ms']:.3f} "
+            f"ms, launch {sp['launch_ms']:.3f} ms, pull {sp['pull_ms']:.3f} "
+            f"ms (the waits on the card included), host rows "
+            f"{sp['rows_ms']:.3f} ms, dispatch rest {sp['dispatch_ms']:.3f}"
+            f" ms, verdicts {sp['verdicts_ms']:.3f} ms; {sp['launches']:.2f}"
+            f" launches, {sp['uploads']:.2f} uploads "
+            f"({sp['upload_bytes']:.0f} B), {sp['pulls']:.2f} pulls "
+            f"({sp['pull_bytes']:.0f} B) a dispatch; spans (minimizers an "
+            f"interval's span) {json.dumps(sp['spans'])}")
+
+
+def _stage1_whole_job(fr, bins, name, timer, rows=False):
     """search_stage(jobs=1), the whole-job path, on the card with the
     prefilter forced on and then with the roll engine forced on, each
-    against the host route: seeds.bed byte-identical.  The prefilter
-    run's window-ideal calls are checked against their plain versions
-    afterwards."""
+    against the host route: seeds.bed byte-identical.  The prefilter run's
+    host time is split (``PrefilterSplit``) and its kernel calls are
+    checked against their plain version afterwards (``rows``: the plain
+    version's rows through the per-row kernels too).  ``timer`` None: the
+    walls and the split alone (``--prefilter-split``)."""
+    import contextlib
     from sedef_tpu_torch.config import DEFAULT
     from sedef_tpu_torch.models import pipeline as pl
     from sedef_tpu_torch.models import seeder
@@ -1848,17 +2145,18 @@ def _stage1_whole_job(fr, bins, name, timer):
            seeder.ROLL_DEVICE_MIN)
     out = {"wall_host_s": wall_host, "seeds": len(host)}
     for mode in ("prefilter", "roll"):
+        split = PrefilterSplit() if mode == "prefilter" else None
         if mode == "prefilter":
             seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS = True, 0
-            expect = ("_window_sketches", "_span_intersections",
-                      "_composition_ideals")
+            expect = ("_interval_verdicts",) if timer else ()
         else:
             seeder.ROLL_DEVICE_MIN = 0
             expect = ("_roll_batch",)
         prefilter.reset_stats()
         try:
             with _Stage1Path(f"{name} whole-job {mode}", expect) as path, \
-                    timer:
+                    (timer or contextlib.nullcontext()), \
+                    (split or contextlib.nullcontext()):
                 t0 = time.perf_counter()
                 dev = pl.search_stage(fr, bins, DEFAULT, use_device="cuda",
                                       jobs=1, cache=cache)
@@ -1874,20 +2172,29 @@ def _stage1_whole_job(fr, bins, name, timer):
             if not stats["intervals"]:
                 raise AssertionError(f"{name}: the prefilter ran on no "
                                      f"interval")
-            checked = _check_ideal_calls(timer)
+            sp = split.read(sum(path.counts.values()))
+            log(_split_line(name, sp))
+            checked = "not checked"
+            if timer:
+                checked, spans, b_spans = _check_interval_calls(timer, rows)
+                log(f"[stage1] spans {name}: minimizers a span over all "
+                    f"planned intervals {json.dumps(spans)}; over the "
+                    f"intervals phase B ran on {json.dumps(b_spans)} (tile "
+                    f"{prefilter.INTERVAL_TILE} loci)")
+                sp["b_spans"] = b_spans
             log(f"[stage1] prefilter {name} (search_stage jobs=1, forced "
                 f"on): {stats['intervals']} intervals planned, "
                 f"{stats['pruned_a']} pruned in phase A, {stats['pruned_b']}"
                 f" in phase B, {stats['rows']} composition rows, device "
-                f"{stats['device_ms']:.3f} ms from dispatch to collect (CUDA "
-                f"events, summed over the pairs: their windows overlap in "
-                f"the two-phase loop); stage-1 wall {wall_dev:.3f} s on the "
+                f"{stats['device_ms']:.3f} ms (CUDA events around each "
+                f"dispatch's upload, launch and pull, summed over the pairs)"
+                f"; stage-1 wall {wall_dev:.3f} s on the "
                 f"card against {wall_host:.3f} s on the host; {len(host)} "
                 f"seeds, seeds.bed = host route's; kernel launches "
                 f"{path.counts}, every call's output = its plain version's "
                 f"({checked})")
             out["prefilter"] = dict(stats, wall_card_s=wall_dev,
-                                    launches=path.counts)
+                                    launches=path.counts, split=sp)
         else:
             log(f"[stage1] roll engine {name} (search_stage jobs=1, forced "
                 f"on: every pair's plan through the roll path): stage-1 wall "
@@ -1933,33 +2240,52 @@ def _sketch_batch(qh, k):
     return {"ms": k_ms, "plain_ms": p_ms}
 
 
-def _stage1_gates(genomes, host, tmp):
+def _stage1_gates(genomes, host, tmp, checks=True):
     """One run_pipeline(jobs=1) of e2e-20M on the card under the gates
-    devcal.apply installs: aligned.bed and final.bed = the host route's."""
+    devcal.apply installs: aligned.bed and final.bed = the host route's;
+    the prefilter's host time split, every launch of the per-interval
+    kernel against its plain version (the stage-1 kernels' main-path
+    launches are this run's).  ``checks`` False: the wall and the split
+    alone, no bed compared (``--prefilter-split``)."""
+    import contextlib
+
     from sedef_tpu_torch.config import DEFAULT
     from sedef_tpu_torch.models import seeder
     from sedef_tpu_torch.models.pipeline import run_pipeline
     from sedef_tpu_torch.ops import prefilter
     al = _aligner("card", None)
     prefilter.reset_stats()
-    t0 = time.perf_counter()
-    paths = run_pipeline(genomes["e2e-20M"][0], os.path.join(tmp, "gates"),
-                         DEFAULT, nbuckets=16, aligner=al, jobs=1,
-                         quiet=True, force=True)
-    wall = time.perf_counter() - t0
+    timer = OpTimer(record=RECORDED) if checks else None
+    with _Stage1Path("e2e-20M run_pipeline, calibrated gates", ()) as path, \
+            (timer or contextlib.nullcontext()), PrefilterSplit() as split:
+        t0 = time.perf_counter()
+        paths = run_pipeline(genomes["e2e-20M"][0],
+                             os.path.join(tmp, "gates"), DEFAULT,
+                             nbuckets=16, aligner=al, jobs=1, quiet=True,
+                             force=True)
+        wall = time.perf_counter() - t0
     for s in ("aligned", "final"):
-        if open(paths[s], "rb").read() != host["e2e-20M"][1][s]:
+        if checks and open(paths[s], "rb").read() != host["e2e-20M"][1][s]:
             raise AssertionError(f"gates run: {s}.bed != host route's")
     stats = dict(prefilter.STATS)
+    sp = split.read(sum(path.counts.values()))
+    if seeder.PREFILTER_ON and stats["intervals"] and checks:
+        _require_launched("gates run", path.counts, ("_interval_verdicts",))
+    checked = _check_interval_calls(timer)[0] if checks else "not checked"
+    for name in STAGE1:
+        STAGE1[name]["main_path_launches"] = path.counts.get(name, 0)
+    log(_split_line("e2e-20M, calibrated gates", sp))
     log(f"[stage1] calibrated gates (devcal.apply): PREFILTER_ON="
         f"{seeder.PREFILTER_ON} PREFILTER_MIN_STEPS="
         f"{seeder.PREFILTER_MIN_STEPS}; run_pipeline(jobs=1) e2e-20M on the "
         f"card {wall:.3f} s, prefilter on {stats['intervals']} intervals "
         f"({stats['pruned_a'] + stats['pruned_b']} pruned); aligned.bed and "
-        f"final.bed = host route's")
+        f"final.bed = host route's; main-path launches {path.counts}, "
+        f"every call = its plain version's ({checked})")
     return {"prefilter_on": seeder.PREFILTER_ON,
             "prefilter_min_steps": seeder.PREFILTER_MIN_STEPS,
-            "wall_s": wall, "intervals": stats["intervals"]}
+            "wall_s": wall, "intervals": stats["intervals"],
+            "launches": path.counts, "split": sp}
 
 
 def _roll_edge_rows(k, w):
@@ -2089,14 +2415,16 @@ def _roll_kernel_checks(qh, seq_len, k, w):
 
 
 def _stage1_roll(fa, timer, k, w):
-    """The roll engine forced on for one whole chromosome of the dense
-    genome against itself and its reverse complement: seeds = the host
-    route's."""
+    """The roll engine forced on, then the prefilter forced on, for one
+    whole chromosome of the dense genome against itself and its reverse
+    complement: seeds = the host route's; every launch of the prefilter's
+    kernel against its plain version."""
     import torch
 
     from sedef_tpu_torch.config import DEFAULT
     from sedef_tpu_torch.io.fasta import FastaReference
     from sedef_tpu_torch.models import seeder
+    from sedef_tpu_torch.ops import prefilter
     from sedef_tpu_torch.ops import roll_engine as re_
     from sedef_tpu_torch.ops.dna import PackedSeq
     from sedef_tpu_torch.ops.index import MinimizerIndex
@@ -2163,6 +2491,33 @@ def _stage1_roll(fa, timer, k, w):
             f"{wall_dev:.3f} s with the roll on the card against "
             f"{wall_host:.3f} s on the host; {len(host)} seeds = host "
             f"route's")
+
+        ptimer = OpTimer(record=RECORDED)
+        prior = seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS
+        seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS = True, 0
+        prefilter.reset_stats()
+        try:
+            with _Stage1Path(f"{name} prefilter", ("_interval_verdicts",)), \
+                    ptimer:
+                t0 = time.perf_counter()
+                pre = seeder.initial_search(qh, rh, same, DEFAULT,
+                                            use_device="cuda")
+                wall_pre = time.perf_counter() - t0
+        finally:
+            seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS = prior
+        if [h.to_bed() for h in pre] != [h.to_bed() for h in host]:
+            raise AssertionError(f"prefilter {name} rc={rh.seq.is_rc}: "
+                                 f"seeds != host route's")
+        stats = dict(prefilter.STATS)
+        checked = _check_interval_calls(ptimer)[0]
+        pair["prefilter"] = dict(stats, search_wall_card_s=wall_pre)
+        log(f"[stage1] prefilter {name} vs "
+            f"{'its reverse complement' if rh.seq.is_rc else 'itself'} "
+            f"(initial_search, forced on): {stats['intervals']} intervals, "
+            f"{stats['pruned_a']} pruned in phase A, {stats['pruned_b']} in "
+            f"phase B, {stats['rows']} composition rows; {wall_pre:.3f} s "
+            f"on the card against {wall_host:.3f} s on the host; seeds = "
+            f"host route's; every launch = its plain version's ({checked})")
     return out
 
 
@@ -2182,7 +2537,8 @@ def phase_stage1(genomes, host, tmp, dense_fa):
     bins = generate_translation(fr)
     names = [c for b in bins for c in b]
     summary["index"] = _stage1_index(fr, names, k, w, timer)
-    summary["e2e-20M"] = _stage1_whole_job(fr, bins, "e2e-20M", timer)
+    summary["e2e-20M"] = _stage1_whole_job(fr, bins, "e2e-20M", timer,
+                                           rows=True)
     ops = timer.read()  # the e2e-20M whole-job runs' ops
     frm = FastaReference(genomes["mosaic-20M"][0])
     summary["mosaic-20M"] = _stage1_whole_job(
@@ -2201,9 +2557,15 @@ def phase_stage1(genomes, host, tmp, dense_fa):
         log(f"[stage1] op {name}: {o['launches']} calls, {o['ms']:.3f} ms "
             f"(CUDA events), bound {o['bound_ms']:.4f} ms by "
             f"{o['bound_by']}, largest rows shape {o['shape']}")
-    missing = [n for n, paths in STAGE1_PATHS.items() if not paths]
+    summary["sanitizer"] = _sanitize_interval_kernel()
+    missing = [n for n, paths in STAGE1_PATHS.items()
+               if not paths and n not in ROW_KERNELS]
     if missing:
         raise AssertionError(f"stage 1's paths launched no {missing}")
+    unheld = [n for n, rec in STAGE1.items() if not rec["compared"]]
+    if unheld:
+        raise AssertionError(f"{unheld} never held against their plain "
+                             f"versions")
     for name, rec in STAGE1.items():
         log(f"[stage1] kernel {name} ({STAGE1_KERNELS[name][0]}): "
             f"{rec['launches']} launches on {STAGE1_PATHS[name]}; "
@@ -2217,6 +2579,172 @@ def phase_stage1(genomes, host, tmp, dense_fa):
     log(f"[stage1] phase took {summary['phase_s']:.1f}s")
     log("[stage1] " + json.dumps(summary, default=str))
     return summary
+
+
+# ---------------------------------------------------------------------------
+# The per-interval kernel under compute-sanitizer
+# ---------------------------------------------------------------------------
+
+SANITIZER_TOOLS = ("memcheck", "racecheck")
+SANITIZER_TIMEOUT = 240  # seconds a tool's run may take
+
+
+def _interval_world(rng, n, n_r, RW):
+    """Ref loci with wide gaps (spans of no loci), keys from a small
+    alphabet with HAS_N keys and duplicate runs, query keys sharing them,
+    and plan columns with n_steps 0, long spans, query windows past SQ,
+    empty and reversed ones (the card tests' world, smaller).  As CUDA
+    int32 tensors (q_keys, r_keys, r_locs, cols)."""
+    import numpy as np
+    import torch
+    gaps = rng.integers(1, 10, n_r)
+    gaps[::97] = 500
+    r_locs = np.cumsum(gaps)
+    alphabet = rng.choice(1 << 20, 64, replace=False)
+    r_keys = rng.choice(alphabet, n_r)
+    r_keys[::5] = (2 << 24) | (r_keys[::5] & 0xffff)
+    r_keys[500:900:2] = alphabet[3]
+    q_keys = rng.choice(alphabet, 5000)
+    q_keys[::7] = r_keys[:5000:7]
+    t0 = rng.integers(0, int(r_locs[-1]) - 3000, n)
+    n_steps = rng.integers(0, 400, n)
+    n_steps[::5] = 0
+    n_steps[1::9] = 2500
+    qws = rng.integers(0, 4800, n)
+    qwe = qws + rng.integers(1, 120, n)
+    qwe[2::11] = qws[2::11] + 200
+    qwe[3::13] = qws[3::13]
+    cols = np.stack([qws, qwe, t0, np.searchsorted(r_locs, t0), n_steps])
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+                 for a in (q_keys, r_keys, r_locs, cols))
+
+
+def interval_probe() -> int:
+    """``--interval-probe``: the per-interval kernel on a small plan at
+    the kernel's tile and at a 3-loci tile with RW 6 (bounds outside the
+    stage), each launch against the plain version; the process a
+    sanitizer runs."""
+    import numpy as np
+    import torch
+
+    from sedef_tpu_torch.ops import prefilter as pf
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    rng = np.random.default_rng(5)
+    lut = torch.minimum(torch.arange(321, dtype=torch.int32) // 5 + 1,
+                        torch.tensor(12, dtype=torch.int32)).cuda()
+    for tile, RW, SA in ((pf.INTERVAL_TILE, 192, 1024), (3, 6, 12)):
+        q_keys, r_keys, r_locs, cols = _interval_world(rng, 96, 6000, RW)
+        kw = dict(L=40, SQ=160, RW=RW, SA=SA, n_shift=24)
+        got = pf._interval_verdicts(q_keys, r_keys, r_locs, lut, cols,
+                                    tile=tile, **kw)
+        torch.cuda.synchronize()
+        want = pf._interval_verdicts_torch(q_keys, r_keys, r_locs, lut,
+                                           cols, **kw)
+        if not torch.equal(got, want):
+            print(f"[probe] records differ at tile {tile}", flush=True)
+            return 1
+    print("[probe] ok: 2 launches = the plain version", flush=True)
+    return 0
+
+
+def _sanitizer_path():
+    """compute-sanitizer beside nvcc (the CUDA toolkit's), or None."""
+    import shutil
+
+    from sedef_tpu_torch.native.build import nvcc_path
+    bin_dir = os.path.dirname(nvcc_path())
+    for cand in (os.path.join(bin_dir, "compute-sanitizer"),
+                 os.path.join(os.path.dirname(bin_dir), "compute-sanitizer",
+                              "compute-sanitizer")):
+        if os.access(cand, os.X_OK):
+            return cand
+    return shutil.which("compute-sanitizer")
+
+
+def _sanitize_interval_kernel() -> dict:
+    """``--interval-probe`` under compute-sanitizer's memcheck and
+    racecheck at once, filtered to the per-interval kernel where the tool
+    takes a kernel filter.  A tool that reports an error or a hazard, or a
+    probe whose records differ, fails the phase; a tool that is absent, or
+    that refuses the card ("Device not supported": the probe's first
+    allocation then fails and no kernel runs), is printed as not run."""
+    import re
+    exe = _sanitizer_path()
+    if exe is None:
+        log("[stage1] sanitizer: no compute-sanitizer beside nvcc; memcheck "
+            "and racecheck of csrc/prefilter_intervals.cu not run")
+        return {"run": False}
+    helptext = subprocess.run([exe, "--help"], capture_output=True,
+                              text=True, timeout=60).stdout
+    filt = (["--kernel-name", "kns=prefilter_intervals"]
+            if "--kernel-name" in helptext else [])
+    t0 = time.perf_counter()
+    procs = {tool: subprocess.Popen(
+        [exe, "--tool", tool, *filt, "--error-exitcode", "7",
+         sys.executable, os.path.abspath(__file__), "--interval-probe"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for tool in SANITIZER_TOOLS}
+    out = {}
+    for tool, proc in procs.items():
+        try:
+            text, _ = proc.communicate(timeout=SANITIZER_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+                p.communicate()
+            raise AssertionError(f"compute-sanitizer {tool} over "
+                                 f"{SANITIZER_TIMEOUT} s")
+        tail = " | ".join(text.strip().splitlines()[-6:])
+        if "[probe] records differ" in text:
+            raise AssertionError(f"{tool} probe: records differ: {tail}")
+        refusal = [ln.strip("= ") for ln in text.splitlines()
+                   if "Error: Device not supported" in ln]
+        if refusal and "[probe] ok" not in text:
+            log(f"[stage1] sanitizer {tool}: not run, the tool refuses this "
+                f"card: {refusal[0]}")
+            out[tool] = {"run": False, "refusal": refusal[0]}
+            continue
+        summary = [ln for ln in text.splitlines() if "SUMMARY" in ln]
+        if not summary:
+            raise AssertionError(f"compute-sanitizer {tool} gave no summary "
+                                 f"(exit {proc.returncode}): {tail}")
+        counts = [int(c) for c in re.findall(
+            r"(\d+) (?:errors?|hazards?|warnings?)", summary[-1])]
+        if proc.returncode or any(counts) or "[probe] ok" not in text:
+            raise AssertionError(f"compute-sanitizer {tool} on "
+                                 f"csrc/prefilter_intervals.cu (exit "
+                                 f"{proc.returncode}): {tail}")
+        out[tool] = {"run": True, "summary": summary[-1].strip("= ")}
+        log(f"[stage1] sanitizer {tool} on csrc/prefilter_intervals.cu "
+            f"({' '.join(filt) or 'every kernel'}; a 96-interval plan at "
+            f"the kernel's tile and at tile 3, RW 6): "
+            f"{out[tool]['summary']}")
+    log(f"[stage1] sanitizer runs took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def prefilter_split() -> int:
+    """``--prefilter-split``: the card, the build, both 20 Mbp genomes'
+    whole-job stage 1 on the host route, with the prefilter forced on
+    (its host time split) and with the roll engine forced on, and the
+    calibrated-gates run, with no check beyond seeds equal to the host
+    route's: the prefilter's host split of any checkout whose package sits
+    beside this script (copy the script into a checkout and run it
+    there)."""
+    from sedef_tpu_torch.io.fasta import FastaReference, generate_translation
+    phase_device()
+    phase_build()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        genomes = _genomes(tmp)
+        for name in ("e2e-20M", "mosaic-20M"):
+            fr = FastaReference(genomes[name][0])
+            out[name] = _stage1_whole_job(fr, generate_translation(fr), name,
+                                          None)
+        out["gates"] = _stage1_gates(genomes, None, tmp, checks=False)
+    log("[split] " + json.dumps(out, default=str))
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -2491,7 +3019,18 @@ def main() -> int:
     ap.add_argument("--main-only", action="store_true",
                     help="build and the main path alone: no kernel phase, "
                          "no calibration phase, no result line")
+    ap.add_argument("--prefilter-split", action="store_true",
+                    help="the stage-1 walls and the prefilter's host split "
+                         "alone (no result line); runs against the package "
+                         "beside the script")
+    ap.add_argument("--interval-probe", action="store_true",
+                    help="the per-interval kernel on a small plan against "
+                         "its plain version (what the sanitizers run)")
     args = ap.parse_args()
+    if args.interval_probe:
+        return interval_probe()
+    if args.prefilter_split:
+        return prefilter_split()
     t_start = time.perf_counter()
     phase_device()
     import torch
@@ -2527,13 +3066,15 @@ def main() -> int:
                 "calibration_launches": calibration[name],
                 "dense_launches": dense_launches[name],
                 **summary[name]} for name, (src, ref) in KERNELS.items()]
-    # stage 1's: launches on stage 1's paths ([stage1] lines)
+    # stage 1's: launches on stage 1's paths ([stage1] lines); the per-row
+    # kernels are on none (ROW_KERNELS), held on the plain version's rows
     kernels += [{"name": name, "route": "cuda", "source": src,
                  "replaces": ref, **{key: STAGE1[name][key] for key in (
-                     "launches", "max_abs_err", "ms", "plain_ms",
-                     "bound_ms", "bound_by", "library_ms", "at",
+                     "launches", "main_path_launches", "max_abs_err", "ms",
+                     "plain_ms", "bound_ms", "bound_by", "library_ms", "at",
                      "bound_formula_ms")},
-                 "paths": STAGE1_PATHS[name]}
+                 "paths": STAGE1_PATHS[name],
+                 "on_path": name not in ROW_KERNELS}
                 for name, (src, ref) in STAGE1_KERNELS.items()]
     log(f"[smoke] took {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))

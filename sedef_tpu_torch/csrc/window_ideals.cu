@@ -29,13 +29,15 @@
 // shared; an exclusive scan over the ref-only distinct keys gives the rest
 // of its union rank, and the shared keys of rank < s are summed.  A warp
 // per row at width <= 256 (four rows a block), a block of 256 threads per
-// row up to 1,024, 512 up to 4,096.
+// row up to 1,024, 512 up to 4,096.  The rank arithmetic (``rank_count``)
+// is csrc/window_rows.cuh's, which the per-interval kernel
+// csrc/prefilter_intervals.cu runs on its composition rows too.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "row_sort.cuh"
+#include "window_rows.cuh"
 
 namespace {
 
@@ -54,7 +56,6 @@ struct IdealArgs {
 // ROWS = blockDim / 32 rows a block; else the block is one row)
 template <int PAD, int THREADS>
 __global__ void window_ideals_kernel(IdealArgs p) {
-  constexpr int E = PAD / THREADS;  // sorted entries a thread scans
   extern __shared__ int32_t smem[];
   __shared__ int red[32];
   const int tid = threadIdx.x % THREADS;
@@ -76,9 +77,7 @@ __global__ void window_ideals_kernel(IdealArgs p) {
     int32_t v = INF32;
     if (j < n) {
       const int i = a + j < p.n_rk ? a + j : p.n_rk - 1;
-      v = p.r_keys[i < 0 ? 0 : i];
-      // HAS_N ref keys are never added to the sketch (sliding.cc:158-168)
-      if ((v >> p.n_shift) == 2) v = INF32;
+      v = sketch_key(p.r_keys[i < 0 ? 0 : i], p.n_shift);
     }
     keys[j] = v;
   }
@@ -89,48 +88,8 @@ __global__ void window_ideals_kernel(IdealArgs p) {
   group_sync<THREADS>();
   group_bitonic<THREADS>(keys, n2, tid);
 
-  // entries [tid * E, tid * E + E) of the sorted keys: for each distinct
-  // key, the query keys below it (lq) and whether the query holds it
-  int lq[E];
-  unsigned shared_mask = 0;
-  int ref_only = 0;
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int j = tid * E + e;
-    lq[e] = 0;
-    if (j >= n2) continue;
-    const int32_t k = keys[j];
-    if (k == INF32 || (j > 0 && keys[j - 1] == k)) continue;
-    int lo = 0, hi = p.SQ;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (q[mid] < k)
-        lo = mid + 1;
-      else
-        hi = mid;
-    }
-    lq[e] = lo;
-    if (lo < p.SQ && q[lo] == k)
-      shared_mask |= 1u << e;
-    else
-      ref_only += 1;
-  }
-  // union rank of a shared key = query keys below it + ref-only distinct
-  // keys below it
-  int before = group_exclusive<THREADS>(ref_only, tid, red);
-  int count = 0;
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int j = tid * E + e;
-    if (j >= n2) continue;
-    const int32_t k = keys[j];
-    if (k == INF32 || (j > 0 && keys[j - 1] == k)) continue;
-    if (shared_mask & (1u << e))
-      count += lq[e] + before < s;
-    else
-      before += 1;
-  }
-  count = group_sum<THREADS>(count, tid, red);
+  const int count =
+      rank_count<PAD, THREADS>(keys, n2, q, p.SQ, s, tid, red);
   if (tid == 0) p.out[row] = count;
 }
 

@@ -24,13 +24,15 @@
 // the dedup and the second sort become one compaction: a key is kept when
 // it differs from its left neighbour, its place is a ballot and a popc of
 // the lanes below it, so the distinct keys land in order with no second
-// sort.  All four outputs are written in the same launch.
+// sort.  All four outputs are written in the same launch.  The row code
+// (``warp_sketch``) is csrc/window_rows.cuh's, which the per-interval
+// kernel csrc/prefilter_intervals.cu runs too.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "row_sort.cuh"
+#include "window_rows.cuh"
 
 namespace {
 
@@ -58,38 +60,12 @@ __global__ void __launch_bounds__(ROWS * 32)
   int32_t* x = smem + warp * a.SQP;
 
   const int qws = a.qws[row], qwe = a.qwe[row];
-  const long span = static_cast<long>(qwe) - qws;
-  const int n = span <= 0 ? 0 : (span < a.SQ ? static_cast<int>(span) : a.SQ);
-  int n2 = 2;
-  while (n2 < n) n2 <<= 1;
-  for (int j = lane; j < n2; j += 32) {
-    int32_t v = INF32;
-    if (j < n) {
-      const int i = qws + j < a.n_q ? qws + j : a.n_q - 1;
-      v = a.q_keys[i < 0 ? 0 : i];
-    }
-    x[j] = v;
-  }
-  __syncwarp();
-  group_bitonic<32>(x, n2, lane);
-
-  // the distinct keys in order: kept where not INF and not equal to the
-  // key on the left; a kept key's slot is the kept keys before it
-  int32_t* out = a.qk + row * a.SQ;
-  int s = 0;
-  for (int base = 0; base < n2; base += 32) {
-    const int j = base + lane;
-    const int32_t v = j < n2 ? x[j] : INF32;
-    const bool keep = v != INF32 && (j == 0 || x[j - 1] != v);
-    const unsigned m = __ballot_sync(FULL, keep);
-    if (keep) out[s + __popc(m & ((1u << lane) - 1))] = v;
-    s += __popc(m);
-  }
-  for (int j = s + lane; j < a.SQ; j += 32) out[j] = INF32;
+  const int s = warp_sketch(a.q_keys, a.n_q, qws, qwe, a.SQ, x,
+                            a.qk + row * a.SQ, lane);
   if (lane == 0) {
     a.s[row] = s;
     a.limit[row] = a.lut[s < a.n_lut - 1 ? s : a.n_lut - 1];
-    a.ovf[row] = span > a.SQ;
+    a.ovf[row] = static_cast<long>(qwe) - qws > a.SQ;
   }
 }
 

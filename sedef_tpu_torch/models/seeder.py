@@ -496,10 +496,9 @@ def _device_prefilter_dispatch(query_hash: MinimizerIndex,
             k, relaxed_jaccard_table(320, k, cfg), cfg.search.min_read_size,
             device=dev)
     qk, _ = query_hash.device_arrays(dev)
-    rk, _ = ref_hash.device_arrays(dev)
+    rk, rl = ref_hash.device_arrays(dev)
     woff = np.repeat(np.arange(len(win)), win[:, 3])
-    return pf.dispatch(qk, rk, ref_hash.locs,
-                       win[woff, 1], win[woff, 2],
+    return pf.dispatch(qk, rk, rl, win[woff, 1], win[woff, 2],
                        iv[:, 0], iv[:, 2], iv[:, 4])
 
 

@@ -44,19 +44,26 @@ Soundness (why a bound suffices for byte-identical output):
 
 Each composition is one independent row — gather its <= RW window keys,
 sort, and merge-rank against the window's sorted query sketch (the
-``ideal`` count, computed by :func:`merge_rank_intersection`) — up to
-``ROW_BATCH`` rows a dispatch with no sequential dependence.  The host
-rolls only the surviving intervals.  tests/test_torch_prefilter.py
+``ideal`` count, computed by :func:`merge_rank_intersection` in the plain
+version) — with no sequential dependence.  The host rolls only the
+surviving intervals.  tests/test_torch_prefilter.py
 re-verifies the bound against the scalar SlidingJaccard oracle.
 
 The device work is queued on the current stream of the device the keys
 live on; ``PendingPrefilter.collect()`` is where the host first waits for
 it.  A device error raises: no interval silently goes to the host.  On a
-card both row evaluations (phase A's span rows, phase B's composition
-rows) are launches of one kernel, ``csrc/window_ideals.cu``, which sorts
-each row in shared memory and never builds the plain versions' (rows,
-SQ + width) concat; the query sketches are one launch of
-``csrc/window_sketches.cu`` (a warp a row, the dedup a ballot compaction).
+card a pair's dispatch is one upload of the plan's five columns, one
+launch of ``csrc/prefilter_intervals.cu`` (an interval a block: its
+sketch, phase A's span bound, phase B's windows enumerated and bounded
+on the card) and one pull of an (n, 2) record; no event row, window
+bound or ideal goes through the host.  Its plain version,
+``_interval_verdicts_torch``, runs the three row functions below
+(``_window_sketches_torch``, ``_span_intersections_torch``,
+``_composition_ideals_torch``) over rows built with torch ops.  The
+three row functions keep their own kernels (``csrc/window_sketches.cu``,
+``csrc/window_ideals.cu``), the counterparts of the reference's three
+jit programs; the per-interval kernel runs their row code
+(``csrc/window_rows.cuh``).
 """
 
 from __future__ import annotations
@@ -74,14 +81,18 @@ INF32 = 2**31 - 1
 DEFAULT_SQ = 160   # max distinct query-window keys
 DEFAULT_RW = 192   # max minimizers inside one init_len window
 DEFAULT_SA = 1024  # max minimizers inside one interval SPAN (phase A)
-# rows a dispatch, a memory bound: phase B's composition rows, and phase
-# A's span rows (1,184 keys wide against 352, so fewer of them)
+# rows a call of the plain version's row functions, a memory bound: phase
+# B's composition rows, and phase A's span rows (1,184 keys wide against
+# 352, so fewer of them)
 ROW_BATCH = 131072
 SPAN_BATCH = 32768
+# loci of a span the per-interval kernel stages in shared memory at a time
+INTERVAL_TILE = 1024
 
 # what the last collected prefilters did, summed until reset (read by
 # chip_smoke.py): intervals, pruned in phase A and in phase B, composition
-# rows, and the device ms from dispatch to collect (CUDA events)
+# rows, and the device ms of each dispatch's queued work, from before its
+# upload to after its pull (CUDA events)
 STATS = dict(intervals=0, pruned_a=0, pruned_b=0, rows=0, device_ms=0.0)
 _STATS_LOCK = threading.Lock()
 
@@ -254,96 +265,189 @@ def _composition_ideals(r_keys, qk_all, s_all, a, b, iv_id,
                           iv_id, RW, 0, n_shift)
 
 
+def _composition_windows(locs, t0, t1, rws0, span_n, surv, L: int):
+    """Phase B's windows of the intervals ``surv`` (int64 ids) in torch
+    ops: for each span locus the remove window clip(loc + 1, t0, t1) and
+    the add window clip(loc - L + 1, t0, t1), then each interval's window
+    at t0 (locs int64 ascending; t0, t1 = t0 + n_steps int64; span_n
+    int64).  Returns (row_iv int64, a int32, b int32): each window's
+    interval and its [a, b) range of loci in [rs, rs + L), by
+    ``torch.searchsorted``."""
+    cnt = span_n[surv]
+    iv1 = surv.repeat_interleave(cnt)
+    first = torch.cumsum(cnt, 0, dtype=torch.int64) - cnt
+    idx = (torch.arange(iv1.shape[0], dtype=torch.int64, device=locs.device)
+           + (rws0.long()[surv] - first).repeat_interleave(cnt))
+    loc = locs[idx]
+    lo, hi = t0[iv1], t1[iv1]
+    rs = torch.cat([torch.clamp(loc + 1, lo, hi),       # removes
+                    torch.clamp(loc - L + 1, lo, hi),   # adds
+                    t0[surv]])                          # the t0 window
+    a = torch.searchsorted(locs, rs, side="left").int()
+    b = torch.searchsorted(locs, rs + L, side="left").int()
+    return torch.cat([iv1, iv1, surv]), a, b
+
+
+def _interval_verdicts_torch(q_keys, r_keys, r_locs, limit_lut, plan,
+                             L: int, SQ: int, RW: int, SA: int,
+                             n_shift: int):
+    """``_interval_verdicts``' plain version: each interval's verdict as
+    the row functions give it.
+
+    plan (5, n) int32: the columns qws, qwe, t0, rws0, n_steps.  The query
+    sketches; phase A's span [rws0, span_end) with span_end the first
+    locus >= t0 + n_steps + L; for the eligible intervals (qwe - qws <= SQ,
+    s > 0) not pruned by phase A, phase B's windows: t0 and, for each span
+    locus, clip(loc + 1, t0, t0 + n_steps) and clip(loc - L + 1, ...),
+    their [a, b) by ``torch.searchsorted``, each window's ideal, and the
+    largest an interval.  Returns (n, 2) int32: 1 where phase A prunes the
+    interval, 2 where phase B does, else 0; and its composition rows
+    (2 span_n + 1 where phase B ran, else 0)."""
+    n = plan.shape[1]
+    dev = plan.device
+    if n == 0:
+        return torch.zeros((0, 2), dtype=torch.int32, device=dev)
+    qws, qwe, t0, rws0, n_steps = (c.contiguous() for c in plan.unbind(0))
+    qk_all, s_all, limit, qovf = _window_sketches_torch(q_keys, qws, qwe,
+                                                        limit_lut, SQ)
+    locs = r_locs.long()
+    t0 = t0.long()
+    t1 = t0 + n_steps.long()
+    span_end = torch.searchsorted(locs, t1 + L, side="left")
+    span_i = torch.cat([
+        _span_intersections_torch(r_keys, qk_all[i:i + SPAN_BATCH],
+                                  rws0[i:i + SPAN_BATCH],
+                                  span_end[i:i + SPAN_BATCH].int(), SA,
+                                  n_shift)
+        for i in range(0, n, SPAN_BATCH)])
+    eligible = ~qovf & (s_all > 0)
+    pruned_a = eligible & (span_i < limit)
+    alive = eligible & ~pruned_a
+    span_n = (span_end - rws0.long()).clamp(min=0)
+    rows = torch.where(alive, 2 * span_n + 1, 0).to(torch.int32)
+
+    ideal_max = torch.zeros(n, dtype=torch.int32, device=dev)
+    row_iv, wa, wb = _composition_windows(locs, t0, t1, rws0, span_n,
+                                          torch.nonzero(alive).flatten(), L)
+    for off in range(0, row_iv.shape[0], ROW_BATCH):
+        part = slice(off, off + ROW_BATCH)
+        ideal = _composition_ideals_torch(r_keys, qk_all, s_all, wa[part],
+                                          wb[part], row_iv[part].int(), RW,
+                                          n_shift)
+        ideal_max.scatter_reduce_(0, row_iv[part], ideal, "amax")
+    pruned_b = alive & (ideal_max < limit)
+    verdict = torch.where(pruned_a, 1, torch.where(pruned_b, 2, 0))
+    return torch.stack([verdict.to(torch.int32), rows], dim=1)
+
+
+def _interval_verdicts(q_keys, r_keys, r_locs, limit_lut, plan, L: int,
+                       SQ: int, RW: int, SA: int, n_shift: int,
+                       tile: int = INTERVAL_TILE):
+    """The intervals' verdicts, as ``_interval_verdicts_torch``: on CUDA
+    tensors one launch of ``csrc/prefilter_intervals.cu`` (a block an
+    interval, ``tile`` span loci staged at a time) on the current stream
+    (no synchronisation), on CPU tensors the plain version.  The plan's
+    columns are not negative and rws0 <= len(r_locs) (the native plan's
+    rws0 is the first locus >= t0)."""
+    dev = _same_device(q_keys, r_keys, r_locs, limit_lut, plan)
+    if dev.type == "cpu":
+        return _interval_verdicts_torch(q_keys, r_keys, r_locs, limit_lut,
+                                        plan, L, SQ, RW, SA, n_shift)
+    for name, t, nd in (("q_keys", q_keys, 1), ("r_keys", r_keys, 1),
+                        ("r_locs", r_locs, 1), ("limit_lut", limit_lut, 1),
+                        ("plan", plan, 2)):
+        _check(t, torch.int32, nd, name)
+    if plan.shape[0] != 5:
+        raise ValueError("plan must hold the five columns qws, qwe, t0, "
+                         "rws0, n_steps")
+    if r_locs.shape[0] != r_keys.shape[0]:
+        raise ValueError("r_keys and r_locs must have one length")
+    if q_keys.shape[0] < 1 or r_keys.shape[0] < 1 or limit_lut.shape[0] < 1:
+        raise ValueError("empty keys or limit table")
+    if not (1 <= SQ <= 1024 and 1 <= RW <= 256 and SA >= 0 and L >= 0
+            and 1 <= tile <= 4096):
+        raise ValueError(f"SQ {SQ}, RW {RW}, SA {SA}, L {L} or tile {tile} "
+                         f"out of the kernel's range")
+    n = plan.shape[1]
+    rec = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    if n:
+        _launch(KERNEL_WRAPPERS[3], dev, _kernels().sedef_prefilter_intervals,
+                q_keys.data_ptr(), r_keys.data_ptr(), r_locs.data_ptr(),
+                limit_lut.data_ptr(), plan.data_ptr(), rec.data_ptr(), n,
+                q_keys.shape[0], r_keys.shape[0], limit_lut.shape[0], SQ,
+                RW, SA, L, n_shift, tile)
+    return rec
+
+
 # the wrappers that launch this module's kernels, with their launch counts;
 # counted through this tuple, so that a caller that wraps the module's
 # functions (chip_smoke.py's op timer) leaves the counts alone
 KERNEL_WRAPPERS = (_span_intersections, _composition_ideals,
-                   _window_sketches)
+                   _window_sketches, _interval_verdicts)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
 
 
-def _ragged_arange(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
-    """concatenate([arange(s, s+c) for s, c in zip(starts, counts)])."""
-    total = int(counts.sum())
-    if total == 0:
-        return np.empty(0, np.int64)
-    off = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    return (np.arange(total, dtype=np.int64)
-            - np.repeat(off, counts) + np.repeat(starts, counts))
-
-
 def _upload(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+    """a as an int32 tensor on ``device``: on a card one copy from pinned
+    memory queued on the current stream (the host does not wait)."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.int32))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _pull(t: torch.Tensor):
+    """(t on the host, the CUDA event after its copy or None): on a card
+    one copy into pinned memory queued on the current stream; the host
+    reads it once the event has passed."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event(enable_timing=True)
+    done.record(torch.cuda.current_stream(t.device))
+    return host, done
 
 
 class PendingPrefilter:
-    """In-flight prefilter verdicts: phase A is queued on the device and
-    ``collect()`` blocks on the results.  Keeping dispatch and collect
-    separate lets the pipeline queue one chromosome pair's device work
-    while it plans or searches the next (models/pipeline.py search_job's
-    two-phase loop)."""
+    """In-flight prefilter verdicts: the pair's launch and the pull of its
+    records are queued on the device and ``collect()`` waits for them.
+    Keeping dispatch and collect separate lets the pipeline queue one
+    chromosome pair's device work while it plans or searches the next
+    (models/pipeline.py search_job's two-phase loop)."""
 
-    def __init__(self, pf, n, bj, bs, ok, ctx):
-        self._pf = pf
+    def __init__(self, n, bj, bs, ok, rec=None, start=None, done=None):
         self._n = n
         self._bj, self._bs, self._ok = bj, bs, ok
-        self._ctx = ctx
+        self._rec, self._start, self._done = rec, start, done
 
     def collect(self):
-        """Block on the device results; returns (best_j, best_steps, ok).
-
-        Phase A (one span-bound row per interval) is pulled first;
-        composition rows (phase B) are built and dispatched ONLY for the
-        phase-A survivors — the device time grows with the rows, and on
-        fail-heavy workloads phase A kills most of them."""
-        n = self._n
-        if n == 0 or self._ctx is None:
+        """Wait for the records; returns (best_j, best_steps, ok)."""
+        if self._rec is None:
             return self._bj, self._bs, self._ok
-        ctx = self._ctx
-        self._ctx = None
-
-        span_i = ctx["span_i"].cpu().numpy().astype(np.int64)
-        limit = ctx["limit"].cpu().numpy().astype(np.int64)
-        s_all = ctx["s_all"].cpu().numpy()
-        qovf = ctx["qovf"].cpu().numpy()
-        eligible = (~qovf) & (s_all > 0)
-        verdict = eligible & (span_i < limit)
-        pruned_a = int(verdict.sum())
-
-        survivors = np.nonzero(eligible & ~verdict)[0].astype(np.int64)
-        rows = 0
-        if len(survivors):
-            pending, row_iv = self._pf._dispatch_compositions(ctx,
-                                                              survivors)
-            rows = len(row_iv)
-            ideal_max = np.zeros(n, np.int64)
-            for part, out in pending:
-                np.maximum.at(ideal_max, row_iv[part],
-                              out.cpu().numpy().astype(np.int64))
-            verdict[survivors] |= ideal_max[survivors] < limit[survivors]
+        ms = 0.0
+        if self._done is not None:
+            self._done.synchronize()
+            ms = self._start.elapsed_time(self._done)
+        rec = self._rec.numpy()
+        self._rec = None
+        verdict = rec[:, 0] > 0
         self._bj[verdict] = -1
         self._ok[:] = verdict
-        ms = 0.0
-        if ctx["start"] is not None:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            end.synchronize()
-            ms = ctx["start"].elapsed_time(end)
         with _STATS_LOCK:
-            STATS["intervals"] += n
-            STATS["pruned_a"] += pruned_a
-            STATS["pruned_b"] += int(verdict.sum()) - pruned_a
-            STATS["rows"] += rows
+            STATS["intervals"] += self._n
+            STATS["pruned_a"] += int((rec[:, 0] == 1).sum())
+            STATS["pruned_b"] += int((rec[:, 0] == 2).sum())
+            STATS["rows"] += int(rec[:, 1].sum(dtype=np.int64))
             STATS["device_ms"] += ms
         return self._bj, self._bs, self._ok
 
 
 class RollPrefilter:
-    """Batches planned intervals into composition rows and returns
-    per-interval verdicts in the native ``sedef_search`` results contract:
-    (best_j=-1, best_steps=0, ok=True) where the roll provably fails the
-    Jaccard gate; ok=False (host rolls) everywhere else."""
+    """Per-interval verdicts in the native ``sedef_search`` results
+    contract: (best_j=-1, best_steps=0, ok=True) where the roll provably
+    fails the Jaccard gate; ok=False (host rolls) everywhere else."""
 
     def __init__(self, kmer_size: int, limit_lut: np.ndarray,
                  init_len: int, SQ: int = DEFAULT_SQ, RW: int = DEFAULT_RW,
@@ -358,101 +462,40 @@ class RollPrefilter:
         self.RW = RW
         self.SA = SA
 
-    def run(self, q_keys, r_keys, r_locs_host: np.ndarray, qws, qwe, t0,
-            rws0, n_steps):
+    def run(self, q_keys, r_keys, r_locs, qws, qwe, t0, rws0, n_steps):
         """Verdicts for all planned intervals (plan order) — dispatch +
         blocking collect."""
-        return self.dispatch(q_keys, r_keys, r_locs_host, qws, qwe, t0,
-                             rws0, n_steps).collect()
+        return self.dispatch(q_keys, r_keys, r_locs, qws, qwe, t0, rws0,
+                             n_steps).collect()
 
-    def dispatch(self, q_keys, r_keys, r_locs_host: np.ndarray, qws, qwe,
-                 t0, rws0, n_steps) -> PendingPrefilter:
-        """Queue phase A for all planned intervals (plan order) without
-        blocking; the returned handle's ``collect()`` yields the verdicts.
+    def dispatch(self, q_keys, r_keys, r_locs, qws, qwe, t0, rws0,
+                 n_steps) -> PendingPrefilter:
+        """Queue the verdicts of all planned intervals (plan order) without
+        blocking; the returned handle's ``collect()`` yields them.
 
-        q_keys / r_keys: int32 minimizer keys on the prefilter's device;
-        r_locs_host: the ref's host loci (event construction);
-        qws/qwe: per-interval query window minimizer range;
-        t0/rws0/n_steps: plan interval columns."""
+        q_keys / r_keys / r_locs: int32 minimizer keys and the ref's loci
+        on the prefilter's device; qws/qwe: per-interval query window
+        minimizer range; t0/rws0/n_steps: plan interval columns (host
+        arrays)."""
         n = len(qws)
         bj = np.zeros(n, np.int32)
         bs = np.zeros(n, np.int32)
         ok = np.zeros(n, bool)
         if n == 0:
-            return PendingPrefilter(self, 0, bj, bs, ok, None)
+            return PendingPrefilter(0, bj, bs, ok)
+        cols = np.stack([np.asarray(c, np.int64)
+                         for c in (qws, qwe, t0, rws0, n_steps)])
+        if ((cols < 0).any() or int(cols[2].max() + cols[4].max())
+                + self.L >= 2**31 or int(cols[3].max()) > r_locs.shape[0]):
+            raise ValueError("plan columns out of the int32 plan's range")
         dev = self.device
-        start = None
+        start = done = None
         if dev.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
-            start.record()
-        t0 = np.asarray(t0, np.int64)
-        rws0 = np.asarray(rws0, np.int64)
-        n_steps = np.asarray(n_steps, np.int64)
-
-        # ---- per-interval query sketches ----
-        qk_all, s_all, limit, qovf = _window_sketches(
-            q_keys, _upload(qws, dev), _upload(qwe, dev), self.limit_lut,
-            SQ=self.SQ)
-
-        # ---- phase A: one span-bound row per interval ----
-        # span [sa, sb) covers every window the roll can visit; rws0 IS
-        # native find_minimizers(t0) — the identical left-searchsorted —
-        # so reuse it as the span start rather than recomputing
-        span_end = np.searchsorted(r_locs_host, t0 + n_steps + self.L,
-                                   side="left").astype(np.int64)
-        sa = _upload(rws0, dev)
-        sb = _upload(span_end, dev)
-        span_i = torch.cat([
-            _span_intersections(r_keys, qk_all[i:i + SPAN_BATCH],
-                                sa[i:i + SPAN_BATCH], sb[i:i + SPAN_BATCH],
-                                SA=self.SA, n_shift=self.n_shift)
-            for i in range(0, n, SPAN_BATCH)])
-
-        ctx = dict(span_i=span_i, limit=limit, s_all=s_all, qovf=qovf,
-                   qk_all=qk_all, r_keys=r_keys, r_locs_host=r_locs_host,
-                   t0=t0, rws0=rws0, n_steps=n_steps, span_end=span_end,
-                   start=start)
-        return PendingPrefilter(self, n, bj, bs, ok, ctx)
-
-    def _dispatch_compositions(self, ctx, survivors: np.ndarray):
-        """Phase B: composition rows for the phase-A survivor intervals.
-
-        Every distinct window the roll visits starts at t0 or at a
-        (clamped) minimizer-boundary event; each becomes one row of the
-        batched ideal evaluation.  Returns (pending, row_iv) for the
-        collector: pending holds (row slice, (rows,) int32 device tensor)
-        per batch of at most ``ROW_BATCH`` rows."""
-        r_locs_host = ctx["r_locs_host"]
-        t0, rws0 = ctx["t0"], ctx["rws0"]
-        n_steps, span_end = ctx["n_steps"], ctx["span_end"]
-
-        span_n = np.maximum(span_end - rws0, 0)[survivors]
-        idx = _ragged_arange(rws0[survivors], span_n)
-        ev_loc = r_locs_host[idx].astype(np.int64)
-        row_iv1 = np.repeat(survivors.astype(np.int32), span_n)
-        lo = t0[row_iv1]
-        hi = t0[row_iv1] + n_steps[row_iv1]
-        rs_events = np.concatenate([
-            np.clip(ev_loc + 1, lo, hi),           # remove-boundary events
-            np.clip(ev_loc - self.L + 1, lo, hi),  # add-boundary events
-            t0[survivors],                         # the initial window
-        ]).astype(np.int64)
-        row_iv = np.concatenate([row_iv1, row_iv1,
-                                 survivors.astype(np.int32)])
-
-        # window [a, b) minimizer bounds on the host (np.searchsorted over
-        # the loci)
-        wa = np.searchsorted(r_locs_host, rs_events, side="left")
-        wb = np.searchsorted(r_locs_host, rs_events + self.L, side="left")
-
-        dev = self.device
-        pending = []
-        for off in range(0, len(rs_events), ROW_BATCH):
-            part = slice(off, min(off + ROW_BATCH, len(rs_events)))
-            out = _composition_ideals(
-                ctx["r_keys"], ctx["qk_all"], ctx["s_all"],
-                _upload(wa[part], dev), _upload(wb[part], dev),
-                _upload(row_iv[part], dev), RW=self.RW,
-                n_shift=self.n_shift)
-            pending.append((part, out))
-        return pending, row_iv
+            start.record(torch.cuda.current_stream(dev))
+        plan = _upload(cols, dev)
+        rec = _interval_verdicts(q_keys, r_keys, r_locs, self.limit_lut,
+                                 plan, L=self.L, SQ=self.SQ, RW=self.RW,
+                                 SA=self.SA, n_shift=self.n_shift)
+        rec, done = _pull(rec)
+        return PendingPrefilter(n, bj, bs, ok, rec, start, done)

@@ -496,6 +496,7 @@ def _kernels():
                     "sedef_roll_batch": [vp] * 14 + [ci] * 11 + [vp],
                     "sedef_window_ideals": [vp] * 7 + [ci] * 6 + [vp],
                     "sedef_window_sketches": [vp] * 8 + [ci] * 4 + [vp],
+                    "sedef_prefilter_intervals": [vp] * 6 + [ci] * 10 + [vp],
                     "sedef_device_index": [vp] * 7 + [ci] * 7 + [vp],
                     "sedef_qgram_scores": [vp] * 3 + [ci] * 2 + [vp],
                 }

@@ -821,6 +821,81 @@ def test_stage1_window_ideals_kernel_matches_plain(dev):
         assert (want == pf.INF32).any() and (want > 0).any()
 
 
+def _interval_world(rng, n=4000, n_r=60_000, RW=192):
+    """Ref loci with wide gaps (spans of no loci), keys from a small
+    alphabet with HAS_N keys and duplicate runs, query keys sharing them,
+    and plan columns with every edge of the per-interval flow: n_steps 0,
+    long spans (past SA, over several tiles), query windows past SQ, empty
+    and reversed ones.  As numpy int32 (q_keys, r_keys, r_locs, cols)."""
+    gaps = rng.integers(1, 10, n_r)
+    gaps[::997] = 500
+    r_locs = np.cumsum(gaps).astype(np.int32)
+    alphabet = rng.choice(1 << 20, 64, replace=False)
+    r_keys = rng.choice(alphabet, n_r).astype(np.int32)
+    r_keys[::5] = (2 << 24) | (r_keys[::5] & 0xffff)     # HAS_N
+    r_keys[5000:9000:2] = alphabet[3]                     # duplicates
+    q_keys = rng.choice(alphabet, 50_000).astype(np.int32)
+    q_keys[::7] = r_keys[:50_000:7]
+    t0 = rng.integers(0, int(r_locs[-1]) - 8000, n)
+    n_steps = rng.integers(0, 400, n)
+    n_steps[::5] = 0
+    n_steps[1::9] = rng.integers(2000, 7000, len(n_steps[1::9]))
+    qws = rng.integers(0, 49_000, n)
+    qwe = qws + rng.integers(1, 120, n)
+    qwe[2::11] = qws[2::11] + 200                         # past SQ
+    qwe[3::13] = qws[3::13] - rng.integers(0, 3, len(qws[3::13]))
+    rws0 = np.searchsorted(r_locs, t0)
+    cols = np.stack([qws, qwe, t0, rws0, n_steps]).astype(np.int32)
+    return q_keys, r_keys, r_locs, cols
+
+
+@pytest.mark.parametrize("tile", [1024, 16, 3])
+def test_stage1_interval_kernel_matches_plain(dev, tile):
+    """``csrc/prefilter_intervals.cu`` against ``_interval_verdicts_torch``
+    on a repeat-rich pair's plan and on random plans with every edge (RW
+    192 and 6, SA 1,024 and 12), one launch each, records equal."""
+    from sedef_tpu_torch.config import DEFAULT
+    from sedef_tpu_torch.native import lib as native
+    from sedef_tpu_torch.ops import dna
+    from sedef_tpu_torch.ops import prefilter as pf
+    from sedef_tpu_torch.ops.index import MinimizerIndex
+    from sedef_tpu_torch.ops.stat_model import relaxed_jaccard_table
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    q, r = _stage1_pair(5)
+    qh = MinimizerIndex(dna.PackedSeq("q", q), 12, 16)
+    rh = MinimizerIndex(dna.PackedSeq("r", r), 12, 16)
+    win, iv = native.search_plan(qh, rh, False, DEFAULT)
+    woff = np.repeat(np.arange(len(win)), win[:, 3])
+    lut = T(relaxed_jaccard_table(320, 12, DEFAULT))
+    L = DEFAULT.search.min_read_size
+    qk, _ = qh.device_arrays(dev)
+    rk, rl = rh.device_arrays(dev)
+    cases = [((qk, rk, rl, lut, T(np.stack([win[woff, 1], win[woff, 2],
+                                            iv[:, 0], iv[:, 2],
+                                            iv[:, 4]]))),
+              dict(L=L, SQ=160, RW=192, SA=1024))]
+    rng = np.random.default_rng(tile)
+    small = T(np.minimum(np.arange(321) // 5 + 1, 12))
+    for RW, SA in ((192, 1024), (6, 12)):
+        q_keys, r_keys, r_locs, cols = _interval_world(rng, RW=RW)
+        cases.append(((T(q_keys), T(r_keys), T(r_locs), small, T(cols)),
+                      dict(L=40, SQ=160, RW=RW, SA=SA)))
+    seen = np.zeros(3, bool)
+    for args, kw in cases:
+        before = pf._interval_verdicts.launches
+        got = pf._interval_verdicts(*args, n_shift=24, tile=tile, **kw)
+        torch.cuda.synchronize()
+        assert pf._interval_verdicts.launches == before + 1
+        want = pf._interval_verdicts_torch(*args, n_shift=24, **kw)
+        assert got.dtype == want.dtype and torch.equal(got, want), kw
+        codes = want[:, 0].cpu().numpy()
+        seen |= np.array([(codes == c).any() for c in range(3)])
+    assert seen.all()
+
+
 def test_stage1_window_sketches_kernel_matches_plain(dev):
     """``csrc/window_sketches.cu`` against its plain version: plan-like
     windows, empty ones, qwe < qws, windows past SQ and past the keys'

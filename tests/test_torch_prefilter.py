@@ -69,6 +69,14 @@ def _eq(got, want):
     np.testing.assert_array_equal(got, want)
 
 
+def _ragged_arange(starts, counts):
+    """concatenate([arange(s, s+c) for s, c in zip(starts, counts)])."""
+    if int(counts.sum()) == 0:
+        return np.empty(0, np.int64)
+    return np.concatenate([np.arange(s, s + c, dtype=np.int64)
+                           for s, c in zip(starts, counts)])
+
+
 def _columns(qh, rh, plan):
     win, iv = plan
     woff = np.repeat(np.arange(len(win)), win[:, 3])
@@ -107,7 +115,7 @@ def test_phases_and_verdicts_match_reference(seed, rate):
     # phase B: every interval's composition rows
     span_n = np.maximum(sb.astype(np.int64) - rws0, 0)
     ivs = np.arange(len(t0))
-    idx = pf._ragged_arange(rws0, span_n)
+    idx = _ragged_arange(rws0, span_n)
     ev = rh.locs[idx].astype(np.int64)
     row_iv1 = np.repeat(ivs, span_n)
     lo, hi = t0[row_iv1], t0[row_iv1] + n_steps[row_iv1]
@@ -502,3 +510,377 @@ def test_window_sketches_model_matches_plain(seed):
         for g, w in zip(window_sketches_model(q_keys, qws, qwe, lut, SQ),
                         want):
             np.testing.assert_array_equal(g, w.numpy())
+
+
+# ---------------------------------------------------------------------------
+# The per-interval flow: ``_interval_verdicts`` (csrc/prefilter_intervals.cu
+# on a card) and its plain version against the reference's RollPrefilter
+# ---------------------------------------------------------------------------
+
+def _ref_records(q_keys, r_keys, r_locs, lut, cols, L_, SQ=160, RW=192,
+                 SA=1024):
+    """The reference package's RollPrefilter on the plan columns, as the
+    port's (n, 2) int32 records: 1 where its phase A prunes an interval, 2
+    where its phase B does, else 0; and the interval's composition rows
+    (its phase-B row ids counted)."""
+    import jax.numpy as jnp
+    rp = ref_pf.RollPrefilter(K, lut, L_, SQ=SQ, RW=RW, SA=SA)
+    qws, qwe, t0, rws0, n_steps = cols
+    n = len(qws)
+    pend = rp.dispatch(jnp.asarray(q_keys), jnp.asarray(r_keys), r_locs,
+                       qws, qwe, t0, rws0, n_steps)
+    ctx = pend._ctx
+    span_i, limit, s_all, qovf = (np.asarray(ctx[k])[:n] for k in (
+        "span_i", "limit", "s_all", "qovf"))
+    pruned_a = ~qovf & (s_all > 0) & (span_i < limit)
+    rows = np.zeros(n, np.int32)
+    real = rp._dispatch_compositions
+
+    def spy(c, survivors):
+        pending, row_iv = real(c, survivors)
+        rows[:] = np.bincount(row_iv, minlength=n)
+        return pending, row_iv
+
+    rp._dispatch_compositions = spy
+    _, _, ok = pend.collect()
+    code = np.where(pruned_a, 1, np.where(ok, 2, 0)).astype(np.int32)
+    return np.stack([code, rows], axis=1)
+
+
+def _plan_tensor(cols):
+    return torch.from_numpy(np.stack([np.asarray(c, np.int64)
+                                      for c in cols]).astype(np.int32))
+
+
+@pytest.mark.parametrize("seed,rate", [(0, 0.12), (1, 0.18), (2, 0.22)])
+def test_interval_verdicts_and_stats_match_reference(seed, rate):
+    """RollPrefilter's verdicts and STATS (intervals, pruned in A and in B,
+    composition rows) on the CPU equal the reference's on the same plan;
+    ``_interval_verdicts`` on CPU tensors is its plain version record for
+    record and launches nothing."""
+    rng = np.random.default_rng(seed)
+    q, r = repeat_rich_pair(rng, rate)
+    qh, rh = _pair(q, r)
+    plan = native.search_plan(qh, rh, False, DEFAULT)
+    cols = _columns(qh, rh, plan)
+    lut = relaxed_jaccard_table(320, K, DEFAULT).astype(np.int32)
+    rqh, rrh = _ref_pair(q, r)
+    want = _ref_records(rqh.keys.astype(np.int32),
+                        rrh.keys.astype(np.int32), rrh.locs, lut, cols, L)
+    T = torch.from_numpy
+    args = (T(qh.keys.astype(np.int32)), T(rh.keys.astype(np.int32)),
+            T(rh.locs.astype(np.int32)), T(lut), _plan_tensor(cols))
+    kw = dict(L=L, SQ=160, RW=192, SA=1024, n_shift=2 * K)
+    before = [w.launches for w in pf.KERNEL_WRAPPERS]
+    got = pf._interval_verdicts(*args, **kw)
+    assert torch.equal(got, pf._interval_verdicts_torch(*args, **kw))
+    assert [w.launches for w in pf.KERNEL_WRAPPERS] == before
+    _eq(got, want)
+    assert (want[:, 0] > 0).any() and (want[:, 1] > 0).any()
+
+    pf.reset_stats()
+    bj, bs, ok = seeder._device_prefilter_results(qh, rh, plan, DEFAULT,
+                                                  CPU)
+    _eq(ok, want[:, 0] > 0)
+    _eq(bj, np.where(want[:, 0] > 0, -1, 0).astype(np.int32))
+    assert pf.STATS["intervals"] == len(want)
+    assert pf.STATS["pruned_a"] == int((want[:, 0] == 1).sum())
+    assert pf.STATS["pruned_b"] == int((want[:, 0] == 2).sum())
+    assert pf.STATS["rows"] == int(want[:, 1].sum())
+
+
+L_E = 40  # the edge worlds' init_len
+N_SHIFT = 2 * K
+
+
+def _edge_world(case, seed=11):
+    """Ref loci and keys, query keys, a limit table and plan columns built
+    so that ``case`` happens, with the SQ, RW and SA it needs; returns
+    (q_keys, r_keys, r_locs, lut, cols, dict(SQ=, RW=, SA=))."""
+    rng = np.random.default_rng(seed)
+    n_r = 700
+    gaps = rng.integers(1, 10, n_r)
+    gaps[300] = 400  # a gap wider than a window: spans of no loci
+    r_locs = np.cumsum(gaps).astype(np.int32)
+    alphabet = rng.choice(1 << 20, 48, replace=False).astype(np.int32)
+    r_keys = rng.choice(alphabet, n_r).astype(np.int32)
+    q_keys = rng.choice(alphabet, 600).astype(np.int32)
+    lut = np.minimum(np.arange(321) // 5 + 1, 12).astype(np.int32)
+    size = dict(SQ=160, RW=192, SA=1024)
+    n = 48
+    t0 = rng.integers(0, int(r_locs[-1]) - 200, n)
+    n_steps = rng.integers(0, 120, n)
+    qws = rng.integers(0, 500, n)
+    qwe = qws + rng.integers(5, 60, n)
+    if case == "span_n_0":      # the t0 window alone
+        t0[:] = r_locs[299] + 1 + rng.integers(0, 300, n)
+        n_steps[:] = rng.integers(0, 400 - L_E - 320, n).clip(0)
+        t0[::4] = rng.integers(0, int(r_locs[-1]) - 200, n)[::4]
+        lut[::2] = 0  # limit 0 at even s: phase A cannot prune, B runs
+    elif case == "n_steps_0":
+        n_steps[:] = 0
+    elif case == "span_over_SA_windows_fit":
+        size.update(SA=12, RW=64)
+        n_steps[:] = rng.integers(80, 300, n)
+    elif case == "prune_A_window_over_RW":
+        size.update(RW=3)
+        # query keys the ref lacks but for a few: phase A prunes
+        q_keys = np.where(rng.random(600) < 0.03, q_keys,
+                          rng.integers(1 << 21, 1 << 22, 600)).astype(
+                              np.int32)
+    elif case == "query_over_SQ":
+        size.update(SQ=24)
+        qwe[::2] = qws[::2] + rng.integers(25, 60, n)[::2]
+    elif case == "s_zero":
+        qwe[::2] = qws[::2]
+        qwe[1::4] = qws[1::4] - 3
+    elif case == "has_n_keys":
+        has_n = (2 << N_SHIFT) | (r_keys & 0xffff)
+        r_keys[::3] = has_n[::3]
+        q_keys[::4] = has_n[:600:4]  # the query side keeps them
+    elif case == "window_past_halo":  # bounds outside the kernel's stage
+        size.update(RW=6)
+        n_steps[:] = rng.integers(200, 500, n)
+    elif case == "duplicate_ref_keys":
+        r_keys[100:400:2] = alphabet[3]
+        r_keys[101:400:4] = alphabet[5]
+        t0[::2] = rng.integers(r_locs[100], r_locs[350], n)[::2]
+    rws0 = np.searchsorted(r_locs, t0, side="left")
+    cols = (qws.astype(np.int32), qwe.astype(np.int32), t0, rws0, n_steps)
+    return q_keys, r_keys, r_locs, lut, cols, size
+
+
+def _edge_facts(r_locs, cols, size):
+    """Per interval: span_n, whether the query window overflows SQ, and
+    the widest composition window in loci."""
+    qws, qwe, t0, rws0, n_steps = (np.asarray(c, np.int64) for c in cols)
+    span_end = np.searchsorted(r_locs, t0 + n_steps + L_E)
+    span_n = np.maximum(span_end - rws0, 0)
+    widest = np.zeros(len(t0), np.int64)
+    for i in range(len(t0)):
+        locs = r_locs[rws0[i]:span_end[i]].astype(np.int64)
+        rs = np.r_[np.clip(locs + 1, t0[i], t0[i] + n_steps[i]),
+                   np.clip(locs - L_E + 1, t0[i], t0[i] + n_steps[i]),
+                   t0[i]]
+        widest[i] = (np.searchsorted(r_locs, rs + L_E)
+                     - np.searchsorted(r_locs, rs)).max()
+    return span_n, (qwe - qws) > size["SQ"], widest
+
+
+EDGE_CASES = ("span_n_0", "n_steps_0", "span_over_SA_windows_fit",
+              "prune_A_window_over_RW", "query_over_SQ", "s_zero",
+              "has_n_keys", "duplicate_ref_keys", "window_past_halo")
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_interval_verdicts_edge_cases_match_reference(case):
+    """Each edge case of the per-interval flow, checked to occur: the
+    plain version's records equal the reference RollPrefilter's."""
+    q_keys, r_keys, r_locs, lut, cols, size = _edge_world(case)
+    span_n, qovf, widest = _edge_facts(r_locs, cols, size)
+    want = _ref_records(q_keys, r_keys, r_locs, lut, cols, L_E, **size)
+    T = torch.from_numpy
+    got = pf._interval_verdicts_torch(
+        T(q_keys), T(r_keys), T(r_locs), T(lut), _plan_tensor(cols),
+        L=L_E, n_shift=N_SHIFT, **size)
+    _eq(got, want)
+    code = want[:, 0]
+    if case == "span_n_0":
+        assert ((span_n == 0) & (want[:, 1] == 1)).sum() >= 4
+        assert ((span_n == 0) & (code == 1)).sum() >= 4
+    elif case == "n_steps_0":
+        assert (want[:, 1] > 0).any()
+    elif case == "span_over_SA_windows_fit":
+        big = (span_n > size["SA"]) & (widest <= size["RW"]) & ~qovf
+        assert big.sum() >= 10 and (code[big] != 1).all()
+        assert (code[big] == 2).any() and (code[big] == 0).any()
+    elif case == "prune_A_window_over_RW":
+        assert ((code == 1) & (widest > size["RW"])).sum() >= 10
+    elif case == "query_over_SQ":
+        assert qovf.sum() >= 10
+        assert (code[qovf] == 0).all() and (want[qovf, 1] == 0).all()
+    elif case == "s_zero":
+        empty = np.asarray(cols[1]) <= np.asarray(cols[0])
+        assert empty.sum() >= 10 and (want[empty] == 0).all()
+    elif case == "window_past_halo":
+        assert (widest > size["RW"] + 1).sum() >= 10
+    else:
+        assert (code == 2).any() or (code == 1).any()
+
+
+def warp_lower_bound_model(locs, lo, hi, x):
+    """``warp_lower_bound`` (csrc/window_rows.cuh): 32 evenly spaced probes
+    a round, the gap of the last probe below x kept."""
+    rounds = 0
+    while lo < hi:
+        step = (hi - lo + 31) // 32
+        p = lo + np.arange(32) * step
+        c = int(((p < hi) & (locs[np.minimum(p, hi - 1)] < x)).sum())
+        nhi = min(lo + c * step, hi)
+        lo, hi = (lo + (c - 1) * step + 1, nhi) if c else (lo, lo)
+        rounds += 1
+    return lo
+
+
+def interval_kernel_model(q_keys, r_keys, r_locs, lut, cols, L_, SQ, RW,
+                          SA, n_shift, tile):
+    """``csrc/prefilter_intervals.cu`` interval by interval in NumPy: the
+    warp's sketch, span_end by the 32-way search, the tile of ``tile`` loci
+    staged with RW + 1 loci of halo and its bracket, phase A's hit flags
+    over the sketch slots, phase B's rows tile by tile (the removes, the
+    adds, then the t0 window in the first tile), each window's bounds
+    searched in the stage when the bracket holds them and over all the
+    loci when not, its keys from the stage or the ref's, sorted by the
+    bitonic network and counted by the rank arithmetic, and the stop at the
+    first window whose ideal reaches the limit.  Returns the (n, 2)
+    records and how many bounds were searched in a stage and outside."""
+    locs = r_locs.astype(np.int64)
+    n_rk = len(locs)
+    qws, qwe, t0s, rws0s, steps = (np.asarray(c, np.int64) for c in cols)
+    n = len(qws)
+    out = np.zeros((n, 2), np.int32)
+    halo = RW + 1
+    searched = dict(staged=0, global_=0, tiles=0, phase_b=0)
+
+    def key(i):
+        k = int(r_keys[i])
+        return pf.INF32 if k >> n_shift == 2 else k
+
+    for iv in range(n):
+        if qwe[iv] - qws[iv] > SQ:
+            continue
+        qk, s, limit, _ = window_sketches_model(
+            q_keys, qws[iv:iv + 1], qwe[iv:iv + 1], lut, SQ)
+        q, s, limit = qk[0], int(s[0]), int(limit[0])
+        if s == 0:
+            continue
+        t0, rws0 = int(t0s[iv]), int(rws0s[iv])
+        t1 = t0 + int(steps[iv])
+        span_end = warp_lower_bound_model(locs, 0, n_rk, t1 + L_)
+        span_n = max(span_end - rws0, 0)
+
+        def stage(lo, hi):
+            s0 = min(max(max(lo - halo, rws0), 0), n_rk)
+            s1 = min(max(min(hi + halo, span_end), s0), n_rk)
+            left = -(1 << 62) if s0 == 0 else locs[s0 - 1]
+            right = 1 << 62 if s1 == n_rk else locs[s1]
+            return s0, s1, left, right
+
+        s0, s1, left, right = stage(rws0, rws0 + min(span_n, tile))
+        span_i = pf.INF32
+        if span_n <= SA:
+            flags = np.zeros(SQ, bool)
+            for j in range(span_n):
+                k = key(rws0 + j)
+                if k == pf.INF32:
+                    continue
+                pos = int(np.searchsorted(q, k))
+                if pos < SQ and q[pos] == k:
+                    flags[pos] = True
+            span_i = int(flags.sum())
+        if span_i < limit:
+            out[iv] = (1, 0)
+            continue
+
+        searched["phase_b"] += 1
+        alive = False
+        lo, first = rws0, True
+        while first or lo < rws0 + span_n:
+            hi = min(lo + tile, rws0 + span_n)
+            if not first:
+                s0, s1, left, right = stage(lo, hi)
+            searched["tiles"] += 1
+            cnt = hi - lo
+
+            def find(x):
+                if left < x <= right:
+                    searched["staged"] += 1
+                    return s0 + warp_lower_bound_model(locs[s0:s1], 0,
+                                                       s1 - s0, x)
+                searched["global_"] += 1
+                return warp_lower_bound_model(locs, 0, n_rk, x)
+
+            for r in range(2 * cnt + first):
+                rs = t0
+                if r < 2 * cnt:
+                    loc = int(locs[lo + (r if r < cnt else r - cnt)])
+                    rs = min(max(loc + 1 if r < cnt else loc - L_ + 1, t0),
+                             t1)
+                a, b = find(rs), find(rs + L_)
+                ideal = pf.INF32
+                if b - a <= RW:
+                    m = max(b - a, 0)
+                    n2 = 2
+                    while n2 < m:
+                        n2 <<= 1
+                    row = np.full(n2, pf.INF32, np.int64)
+                    row[:m] = [key(a + j) for j in range(m)]
+                    row = bitonic_model(row)
+                    new = (row != pf.INF32) & np.r_[True, row[1:] != row[:-1]]
+                    k = row[new]
+                    lq = np.searchsorted(q, k, side="left")
+                    shared = q[np.minimum(lq, SQ - 1)] == k
+                    before = np.cumsum(~shared) - (~shared)
+                    ideal = int(((lq + before < s) & shared).sum())
+                if ideal >= limit:
+                    alive = True
+                    break
+            if alive:
+                break
+            lo, first = lo + tile, False
+        out[iv] = (0 if alive else 2, 2 * span_n + 1)
+    return out, searched
+
+
+@pytest.mark.parametrize("tile", [1024, 16, 3])
+@pytest.mark.parametrize("world", ["plan", "edges"])
+def test_interval_kernel_model_matches_plain(world, tile):
+    """The kernel's per-interval algorithm (device-side event enumeration,
+    staged binary search with its bracket and the search over all loci
+    outside it, in-block maximum with its early stop) against the plain
+    version, on a repeat-rich plan and on every edge world, with the
+    kernel's tile and with tiles narrow enough that spans take several and
+    bounds fall outside the stage."""
+    T = torch.from_numpy
+    if world == "plan":
+        rng = np.random.default_rng(1)
+        q, r = repeat_rich_pair(rng, 0.18)
+        qh, rh = _pair(q, r)
+        plan = native.search_plan(qh, rh, False, DEFAULT)
+        cols = _columns(qh, rh, plan)
+        worlds = [(qh.keys.astype(np.int32), rh.keys.astype(np.int32),
+                   rh.locs.astype(np.int32),
+                   relaxed_jaccard_table(320, K, DEFAULT).astype(np.int32),
+                   cols, dict(SQ=160, RW=192, SA=1024), L)]
+    else:
+        worlds = [_edge_world(c)[:6] + (L_E,) for c in EDGE_CASES]
+    totals = dict(staged=0, global_=0, tiles=0, phase_b=0)
+    for q_keys, r_keys, r_locs, lut, cols, size, L_ in worlds:
+        want = pf._interval_verdicts_torch(
+            T(q_keys), T(r_keys), T(r_locs), T(lut), _plan_tensor(cols),
+            L=L_, n_shift=N_SHIFT, **size).numpy()
+        got, searched = interval_kernel_model(
+            q_keys, r_keys, r_locs, lut, cols, L_, n_shift=N_SHIFT,
+            tile=tile, **size)
+        np.testing.assert_array_equal(got, want)
+        for k in searched:
+            totals[k] += searched[k]
+    assert totals["staged"] > 0
+    if tile < 1024:  # spans over several tiles
+        assert totals["tiles"] > totals["phase_b"] > 0
+    if world == "edges" and tile == 3:  # windows wider than tile + halo
+        assert totals["global_"] > 0
+
+
+def test_interval_wrapper_refuses_other_devices():
+    m = torch.zeros(4, dtype=torch.int32, device="meta")
+    c = torch.zeros(4, dtype=torch.int32)
+    plan = torch.zeros((5, 4), dtype=torch.int32, device="meta")
+    kw = dict(L=L, SQ=160, RW=192, SA=1024, n_shift=2 * K)
+    with pytest.raises(ValueError):
+        pf._interval_verdicts(m, m, m, m, plan, **kw)
+    with pytest.raises(ValueError):
+        pf._interval_verdicts(c, c, c, c, plan, **kw)
+    prefilter = pf.RollPrefilter(K, np.ones(8, np.int32), L, device="cpu")
+    with pytest.raises(ValueError):  # rws0 past the loci
+        prefilter.dispatch(c, c, c, [0], [4], [0], [9], [0])
