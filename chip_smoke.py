@@ -9,7 +9,8 @@ line):
 
 1. the card: ``nvidia-smi`` name and power limit, torch / CUDA versions;
 2. build: the native host runtime and the CUDA kernels, from this
-   checkout's sources;
+   checkout's sources; the roll kernel's registers and spill bytes as
+   ptxas reports them for each row width (a spill fails);
 3. every kernel against its plain PyTorch version on the card, at the
    size classes stage 2b produces (plus one 60 Kbp chunk problem on the
    direct and the tiled route, whose plain fill runs once for both; a
@@ -88,14 +89,19 @@ line):
    ``csrc/roll_engine.cu``), then the prefilter,
    forced on for the dense genome's first chromosome (25 Mbp at the
    default 50) against itself and its reverse complement, seeds equal to
-   the host route's; one full batch (1,024 intervals, W 512) of each
-   roll-length class and a batch of edge rows (empty query windows, HAS_N
-   keys, a window past SQ, rows past each class, a store of 64 entries)
-   against the plain version on the card, the 512 class also against
-   ``RollEngine.run`` on the CPU; each device op's calls, CUDA-event ms
-   and bound, and each stage-1 kernel's launches on these paths (each
-   path's count from 0), its ms against the plain version's and its
-   bound;
+   the host route's; every roll-forced run's calls split
+   (``RollSplit``: one upload, one launch and one pull a pair, or it
+   fails; host ms a call by part; the kernel's summed ms, CUDA events
+   around its launch call); one full batch (1,024 intervals, W 512) of
+   each roll-length class (ns a counted and ns a performed update on the
+   longest chain), edge rows (empty query windows,
+   HAS_N keys, a window past SQ, rows past each class, stores of 64
+   entries) and one merged ``RollEngine.run`` over n_steps 1-4,097 (one
+   launch, against the plain version by class) on the card, the 512
+   class also against ``RollEngine.run`` on the CPU; each device op's
+   calls, CUDA-event ms and bound, and each stage-1 kernel's launches on
+   these paths (each path's count from 0), its ms against the plain
+   version's and its bound;
 5d. the main path at hg19 seed density (``[dense]`` lines): the dense
    rehearsal recipe (``sedef_tpu_torch.tools.rehearsal``) at 50 Mbp
    (``--dense-mbp``; 100 is ``tools/dense_parity.py``'s genome) on 2
@@ -136,8 +142,10 @@ direction matrix or its traceback, an interval's roll, a window's ideal, a
 window's distinct sorted keys, a winnowed minimizer index or a q-gram
 histogram intersection, or an interval's prefilter verdict, so
 ``library_ms`` is null throughout.  A stage-1
-kernel's bound counts the work its inputs need (``_least_work``): 16
-operations a sketch update of a roll; for a window-ideal row of n keys n
+kernel's bound counts the work its inputs need (``_least_work``): for a
+roll its query sketch and 16 operations for each sketch update that its
+inputs force (``_roll_updates``: the init adds and each cursor's fires,
+not two a step); for a window-ideal row of n keys n
 log2 n comparisons, a search of the query row and a scan element a key;
 for a query sketch of n keys n log2 n comparisons and a compaction step;
 for an interval's verdict its sketch, its span's keys searched in it,
@@ -300,7 +308,7 @@ def phase_build():
     from sedef_tpu_torch.ops import wavefront as wf
     # g++ and the nvcc compiles (one per source) run side by side
     from concurrent.futures import ThreadPoolExecutor
-    took = {}
+    took, compiler = {}, {}
 
     def timed(name, fn):
         t0 = time.perf_counter()
@@ -312,12 +320,59 @@ def phase_build():
         jobs = [pool.submit(timed, "native",
                             lambda: build_native(force=True)),
                 pool.submit(timed, "cuda",
-                            lambda: build_cuda(verbose=True, force=True))]
+                            lambda: build_cuda(verbose=True, force=True,
+                                               log=compiler))]
         for job in jobs:
             job.result()
     wf._kernels()
     log(f"[build] native {took['native']:.2f}s cuda {took['cuda']:.2f}s, "
         f"together {time.perf_counter() - t0:.2f}s")
+    _roll_ptxas(compiler.get("roll_engine", ""))
+
+
+def _ptxas_usage(text: str, kernel: str) -> dict:
+    """Per instantiation of the template ``kernel`` (its int argument, from
+    the mangled name) in ``-Xptxas -v`` output: registers, stack frame and
+    spill bytes."""
+    import re
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "entry function" in line or "Function properties for" in line:
+            m = re.search(rf"{kernel}ILi(\d+)E", line)
+            cur = out.setdefault(int(m.group(1)), {}) if m else None
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                cur.update(zip(("stack", "spill_stores", "spill_loads"),
+                               map(int, m.groups())))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
+
+
+def _roll_ptxas(text: str):
+    """The roll kernel's instantiations as ptxas built them (``text``: the
+    compiler's ``-Xptxas -v`` output for its source): registers and spills
+    of each (its register row must not spill: 0 bytes)."""
+    from sedef_tpu_torch.ops.roll_engine import KERNEL_W
+    use = _ptxas_usage(text, "roll_batch_kernel")
+    want = sorted(W // 32 for W in KERNEL_W)
+    if sorted(use) != want or any(len(u) != 4 for u in use.values()):
+        raise AssertionError(f"ptxas reported {use} for the roll kernel, "
+                             f"not E in {want}")
+    ROLL_PTXAS.update({f"W{32 * E}": u for E, u in use.items()})
+    log("[build] csrc/roll_engine.cu, ptxas -v: " + "; ".join(
+        f"W {32 * E} (E {E}): {u['registers']} registers, "
+        f"{u['stack']} bytes stack frame, {u['spill_stores']} / "
+        f"{u['spill_loads']} bytes spill stores / loads"
+        for E, u in sorted(use.items())))
+    spills = {E: u for E, u in use.items()
+              if u["spill_stores"] or u["spill_loads"]}
+    if spills:
+        raise AssertionError(f"the roll kernel's register row spills: "
+                             f"{spills}")
 
 
 def _random_class(rng, S_q, S_t, B):
@@ -1483,7 +1538,7 @@ def _op_costs():
 
     def roll_batch(r_keys, r_locs, nr, lut, q_keys, qws, qwe, t0, rws0,
                    init_cnt, n_steps, re0, W, SQ, INIT_PAD, T_PAD,
-                   n_shift, init_max=None, steps_max=None):
+                   n_shift, init_max=None, steps_max=None, out=None):
         # the steps the batch's rows need, a W-wide row pass of ~13
         # element operations for each of the add and the remove a step
         B = qws.shape[0]
@@ -1516,10 +1571,10 @@ class OpTimer:
     them), the summed bound of the calls' work, and the largest rows
     shape of a call.  ``record``: the ops whose calls (arguments and
     output) are kept, for a later check against their plain versions.
-    An op in ``AFTER`` has its work counted from its output when the timer
-    is read (no wait for the card inside the run)."""
+    An op in ``AFTER`` has its work counted from its arguments and output
+    when the timer is read (no wait for the card inside the run)."""
 
-    AFTER = ("_interval_verdicts",)
+    AFTER = ("_interval_verdicts", "_roll_batch")
 
     def __init__(self, record=()):
         from sedef_tpu_torch.ops import prefilter, roll_engine, winnow_device
@@ -1575,7 +1630,7 @@ class OpTimer:
         torch.cuda.synchronize()
         for name, calls in self.after.items():
             for a, kw, res in calls:
-                self._count(name, *self.costs[name](*a, out=res, **kw))
+                self._count(name, *self.costs[name](*a, **{**kw, "out": res}))
             calls.clear()
         out = {}
         for name, evs in self.events.items():
@@ -1615,6 +1670,8 @@ STAGE1 = {name: {"launches": 0, "max_abs_err": 0, "compared": 0,
                  "library_ms": None} for name in STAGE1_KERNELS}
 # the stage-1 paths a kernel must have been launched on
 STAGE1_PATHS = {name: [] for name in STAGE1_KERNELS}
+# the roll kernel's instantiations: registers and spills (ptxas)
+ROLL_PTXAS = {}
 # the per-row kernels of the prefilter, which no path launches: the
 # per-interval kernel runs their row code (csrc/window_rows.cuh); they are
 # held against their plain versions on the rows the plain version builds
@@ -1703,10 +1760,10 @@ def _time_against_plain(name, kernel, plain, args, kw, at):
     return k_ms, p_ms
 
 
-# integer operations a sketch update of a roll needs at the least: the
-# two loads and the tests of its step, one comparison of the place
-# search, the found / flag tests, the boundary read and its comparison,
-# the counter and the best-jaccard update
+# integer operations a sketch update of a roll needs at the least: its
+# cursor's two loads and test, one comparison of the place search, the
+# found / flag tests, the boundary read and its comparison, the counter
+# and the best-jaccard update (a step where no cursor fires needs none)
 UPDATE_OPS = 16
 # a k-mer position of the index build, at the least: a rolling pack and
 # its mask (3), the status from two running counts (4), a sliding minimum
@@ -1720,8 +1777,10 @@ GRAM_OPS = 2 * QG + 2
 def _least_work(plain, args, kw, out=None):
     """(ops, bytes) a stage-1 kernel's call needs on these inputs, at the
     least: every input read once and every output written once, and the
-    operations the data asks for (a roll: UPDATE_OPS for each sketch
-    update its rows make, init adds and two a step; a window-ideal row:
+    operations the data asks for (a roll: its query sketch, n log2 n
+    comparisons and a compaction step for its n keys, and UPDATE_OPS for
+    each sketch update its inputs force, ``_roll_updates``; a window-ideal
+    row:
     n log2 n comparisons to sort its n keys, a search of the query row
     and a scan element for each; a query sketch: n log2 n comparisons and
     a compaction step for its n gathered keys; the index build:
@@ -1760,11 +1819,11 @@ def _least_work(plain, args, kw, out=None):
                 + B * (4 * SQ + 9))
 
     if "n_steps" in a:
-        updates = (int(a["init_cnt"].clamp(0, a["INIT_PAD"]).sum())
-                   + 2 * int(a["n_steps"].clamp(0, a["T_PAD"]).sum()))
+        n = (a["qwe"] - a["qws"]).clamp(0, a["SQ"]).double()
+        sketch = float((n * (torch.log2(n.clamp(min=2)) + 1)).sum())
         cols = [a[c] for c in ("qws", "qwe", "t0", "rws0", "init_cnt",
                                "n_steps", "re0")]
-        return (UPDATE_OPS * updates,
+        return (sketch + UPDATE_OPS * float(_roll_updates(a)[1].sum()),
                 nb(a["r_keys"], a["r_locs"], a["q_keys"], a["limit_lut"],
                    *cols) + cols[0].shape[0] * 9)
     lo, hi = (a["sa"], a["sb"]) if "sa" in a else (a["a"], a["b"])
@@ -1778,6 +1837,45 @@ def _least_work(plain, args, kw, out=None):
     q_rows = lo.shape[0] if iv is None else int(torch.unique(iv).numel())
     return (ops, 4 * float(n.sum()) + 4 * q_rows * (SQ + 1)
             + nb(lo, hi, iv) + 4 * lo.shape[0])
+
+
+def _roll_updates(a):
+    """A roll call's sketch updates per interval (its arguments bound by
+    name): (counted, performed).  Counted: the init adds and two a step,
+    as a roll that visits every step makes them.  Performed: the updates
+    its inputs force, the init adds and each cursor's fires, less those
+    of HAS_N keys (skipped).  The minimizer loci rise strictly, so the
+    remove cursor, which may fire once a step once loc <= t0 + t, fires
+    min(n, #loci in [rws0, nr) up to t0 + n - 1) times over n steps; the
+    add cursor fires at every locus from re0 to re0 + n - 1, where its
+    first locus is not below re0, else never."""
+    import numpy as np
+    locs = a["r_locs"].cpu().numpy().astype(np.int64)
+    keys = a["r_keys"].cpu().numpy()
+    nr = int(a["nr"])
+    ok_key = np.concatenate(
+        [[0], np.cumsum((keys >> a["n_shift"]) != 2)]).astype(np.int64)
+
+    def col(c):
+        return a[c].cpu().numpy().astype(np.int64)
+
+    rws0, t0, re0 = col("rws0"), col("t0"), col("re0")
+    init = np.clip(col("init_cnt"), 0, a["INIT_PAD"])
+    n = np.clip(col("n_steps"), 0, a["T_PAD"])
+    live = locs[:nr]
+
+    def real(lo, cnt):  # the non-HAS_N keys among [lo, lo + cnt)
+        lo = np.clip(lo, 0, len(keys))
+        return ok_key[np.clip(lo + cnt, 0, len(keys))] - ok_key[lo]
+
+    removes = np.minimum(n, np.maximum(
+        np.searchsorted(live, t0 + n - 1, side="right") - rws0, 0))
+    rwe0 = rws0 + col("init_cnt")
+    first = locs[np.clip(rwe0, 0, len(locs) - 1)]
+    adds = np.where((rwe0 < nr) & (first >= re0), np.maximum(
+        np.searchsorted(live, re0 + n - 1, side="right") - rwe0, 0), 0)
+    return (init + 2 * n,
+            real(rws0, init) + real(rws0, removes) + real(rwe0, adds))
 
 
 def _interval_work(a, rec):
@@ -2103,6 +2201,122 @@ class PrefilterSplit:
         return out
 
 
+class RollSplit:
+    """The roll engine's calls while the block runs (``RollEngine.run``):
+    a call's host ms (its wall, the wait on the card included) and its
+    parts, each its own time: upload (``_upload``), launch
+    (``_roll_batch``), pull (``_pull`` and the wait on its event); each
+    call's launches, uploads and pulls, their bytes, and the kernel's ms
+    summed over the calls: CUDA events recorded just around the kernel's
+    launch call (``_launch``), so that the wrapper's host work before it
+    stays out (the ctypes call and ``cudaLaunchKernel`` stay in, when the
+    stream is idle).  ``read``'s ``one_each``: every
+    call that rolled an interval on the card made one upload, one launch
+    and one pull (a call whose intervals are all past the ladder makes
+    none).  It wraps names that a tree may lack, so that
+    ``--prefilter-split`` runs in any checkout."""
+
+    COUNTS = ("launches", "uploads", "pulls")
+
+    def __init__(self):
+        from sedef_tpu_torch.ops import roll_engine as re_
+        self.re_ = re_
+        self.ms = dict.fromkeys(("call", "upload", "launch", "pull"), 0.0)
+        self.bytes = {"upload": 0, "pull": 0}
+        self.calls = []  # per call: [intervals, launches, uploads, pulls]
+        self.events = []
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+        re_ = self.re_
+        targets = [(re_.RollEngine, "run", "call"), (re_, "_upload", "upload"),
+                   (re_, "_pull", "pull"), (re_, "_roll_batch", "launch"),
+                   (re_, "_launch", "kernel"),
+                   (torch.cuda.Event, "synchronize", "pull")]
+        targets = [t for t in targets if hasattr(t[0], t[1])]
+        self.saved = [(obj, name, obj.__dict__.get(name))
+                      for obj, name, _ in targets]
+        inside = []
+        for obj, name, cat in targets:
+            real = getattr(obj, name)
+
+            def wrapped(*a, _f=real, _cat=cat, _name=name, **kw):
+                if _cat != "call" and not inside:
+                    return _f(*a, **kw)
+                if _cat == "call":
+                    self.calls.append([len(a[6]), 0, 0, 0])
+                    inside.append(re_.KERNEL_WRAPPERS[0].launches)
+                elif _cat == "kernel":
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    out = _f(*a, **kw)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e1.record()
+                    self.events.append((e0, e1))
+                    return out
+                elif _name == "_upload":
+                    self.calls[-1][2] += 1
+                    self.bytes["upload"] += 4 * np.asarray(a[0]).size
+                elif _name == "_pull":
+                    self.calls[-1][3] += 1
+                    self.bytes["pull"] += a[0].numel() * a[0].element_size()
+                t0 = time.perf_counter()
+                try:
+                    out = _f(*a, **kw)
+                finally:
+                    self.ms[_cat] += (time.perf_counter() - t0) * 1e3
+                    if _cat == "call":
+                        self.calls[-1][1] = (re_.KERNEL_WRAPPERS[0].launches
+                                             - inside.pop())
+                return out
+
+            setattr(obj, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, orig in reversed(self.saved):
+            if orig is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, orig)
+
+    def read(self) -> dict:
+        import torch
+        torch.cuda.synchronize()
+        rolled = [c for c in self.calls if c[1:] != [0, 0, 0]]
+        c = max(len(self.calls), 1)
+        parts = self.ms["upload"] + self.ms["launch"] + self.ms["pull"]
+        return {"calls": len(self.calls), "calls_on_card": len(rolled),
+                "one_each": bool(rolled) and all(x[1:] == [1, 1, 1]
+                                                 for x in rolled),
+                "intervals": sum(x[0] for x in self.calls),
+                **{f"{k}_a_call": sum(x[i + 1] for x in self.calls) / c
+                   for i, k in enumerate(self.COUNTS)},
+                **{f"{k}_bytes_a_call": v / c for k, v in self.bytes.items()},
+                **{f"{k}_ms_a_call": v / c for k, v in self.ms.items()},
+                "rest_ms_a_call": (self.ms["call"] - parts) / c,
+                "kernel_ms_summed": sum(a.elapsed_time(b)
+                                        for a, b in self.events)}
+
+
+def _roll_split_line(name, sp) -> str:
+    return (f"[stage1] roll split {name}: {sp['calls']} calls "
+            f"({sp['intervals']} intervals, {sp['calls_on_card']} calls with"
+            f" intervals on the card, one upload, launch and pull each: "
+            f"{sp['one_each']}); a call: {sp['launches_a_call']:.2f} "
+            f"launches, "
+            f"{sp['uploads_a_call']:.2f} uploads "
+            f"({sp['upload_bytes_a_call']:.0f} B), {sp['pulls_a_call']:.2f} "
+            f"pulls ({sp['pull_bytes_a_call']:.0f} B); host ms a call "
+            f"{sp['call_ms_a_call']:.3f} (upload {sp['upload_ms_a_call']:.3f}"
+            f", launch {sp['launch_ms_a_call']:.3f}, pull and its wait "
+            f"{sp['pull_ms_a_call']:.3f}, rest "
+            f"{sp['rest_ms_a_call']:.3f}); kernel {sp['kernel_ms_summed']:.3f}"
+            f" ms summed over the calls (CUDA events around the launch "
+            f"call)")
+
+
 def _split_line(name, sp) -> str:
     return (f"[stage1] prefilter host split {name}: {sp['dispatches']} "
             f"dispatches ({sp['plans']} pairs planned); per dispatch plan "
@@ -2145,7 +2359,7 @@ def _stage1_whole_job(fr, bins, name, timer, rows=False):
            seeder.ROLL_DEVICE_MIN)
     out = {"wall_host_s": wall_host, "seeds": len(host)}
     for mode in ("prefilter", "roll"):
-        split = PrefilterSplit() if mode == "prefilter" else None
+        split = PrefilterSplit() if mode == "prefilter" else RollSplit()
         if mode == "prefilter":
             seeder.PREFILTER_ON, seeder.PREFILTER_MIN_STEPS = True, 0
             expect = ("_interval_verdicts",) if timer else ()
@@ -2196,12 +2410,18 @@ def _stage1_whole_job(fr, bins, name, timer, rows=False):
             out["prefilter"] = dict(stats, wall_card_s=wall_dev,
                                     launches=path.counts, split=sp)
         else:
+            sp = split.read()
+            log(_roll_split_line(f"{name} whole-job", sp))
+            if timer and not sp["one_each"]:
+                raise AssertionError(f"{name}: a roll call is not one "
+                                     f"upload, launch and pull")
             log(f"[stage1] roll engine {name} (search_stage jobs=1, forced "
                 f"on: every pair's plan through the roll path): stage-1 wall "
                 f"{wall_dev:.3f} s on the card against {wall_host:.3f} s on "
                 f"the host; seeds.bed = host route's; kernel launches "
                 f"{path.counts}")
-            out["roll"] = {"wall_card_s": wall_dev, "launches": path.counts}
+            out["roll"] = {"wall_card_s": wall_dev, "launches": path.counts,
+                           "split": sp}
     return out
 
 
@@ -2330,6 +2550,8 @@ def _roll_kernel_checks(qh, seq_len, k, w):
     (the 512 class also through RollEngine.run on the CPU), and the edge
     rows at the card's capacities and at a store of 64 entries; the 4,096
     batch's times go into the summary."""
+    import inspect
+
     import numpy as np
     import torch
 
@@ -2376,20 +2598,37 @@ def _roll_kernel_checks(qh, seq_len, k, w):
             msg = "; RollEngine.run on the card = on the CPU"
         ok = re_._roll_batch(*args, **kw)[2].cpu().numpy()
         rolled = int(cc[5][ok].sum())
+        # the longest chain's sketch updates: counted (init adds, two a
+        # step) and performed (those the inputs force)
+        counted, performed = _roll_updates(inspect.signature(
+            re_._roll_batch_torch).bind(*args, **kw).arguments)
+        chain, done = int(counted.max()), int(performed.max())
         rec = STAGE1["_roll_batch"]
         out[f"batch_{label}"] = {"ms": k_ms, "plain_ms": p_ms,
                                  "ok": int(ok.sum()),
                                  "steps_per_s": rolled / k_ms * 1e3,
+                                 "longest_chain_updates": chain,
+                                 "longest_chain_performed": done,
+                                 "ns_per_counted_update": k_ms * 1e6 / chain,
+                                 "ns_per_performed_update":
+                                     k_ms * 1e6 / done,
                                  "bound_ms": rec["bound_ms"],
                                  "bound_by": rec["bound_by"],
                                  "bound_formula_ms": rec["bound_formula_ms"]}
+        rec[f"ns_per_counted_update_T{T}"] = k_ms * 1e6 / chain
+        rec[f"ns_per_performed_update_T{T}"] = k_ms * 1e6 / done
         log(f"[stage1] roll kernel, one batch of {len(cc[0])} x W "
             f"{re_.DEFAULT_W} in the {label} class (the self plan's "
             f"intervals, repeated): {k_ms:.3f} ms (CUDA events, median of "
             f"3) against the plain version's {p_ms:.3f} ms on the card, "
             f"outputs equal; bound {rec['bound_ms']:.4f} ms by "
-            f"{rec['bound_by']} (formula {rec['bound_formula_ms']:.4f} ms); "
-            f"{int(ok.sum())} ok, {rolled / k_ms * 1e3:.0f} steps/s{msg}")
+            f"{rec['bound_by']} ({int(performed.sum())} sketch updates "
+            f"performed of {int(counted.sum())} counted; formula "
+            f"{rec['bound_formula_ms']:.4f} ms); {int(ok.sum())} ok, "
+            f"{rolled / k_ms * 1e3:.0f} steps/s; the longest chain "
+            f"{chain} sketch updates counted, {k_ms * 1e6 / chain:.1f} ns "
+            f"an update; the longest performed {done}, "
+            f"{k_ms * 1e6 / done:.1f} ns an update{msg}")
     # the edge rows
     eq, er, ec = _roll_edge_rows(k, w)
     eqk, _ = eq.device_arrays("cuda")
@@ -2398,7 +2637,7 @@ def _roll_kernel_checks(qh, seq_len, k, w):
              *[torch.from_numpy(c).cuda() for c in ec])
     cases = []
     for T, W, SQ in ((512, 512, 160), (4096, 512, 160), (4096, 64, 48),
-                     (512, 64, 16)):
+                     (512, 64, 16), (4096, 64, 16)):
         kw = dict(W=W, SQ=SQ, INIT_PAD=re_.DEFAULT_INIT_PAD, T_PAD=T,
                   n_shift=2 * k)
         got = re_._roll_batch(*eargs, **kw)
@@ -2411,7 +2650,54 @@ def _roll_kernel_checks(qh, seq_len, k, w):
         f"SQ, rows past 512 / into 4,096 / past the ladder) = the plain "
         f"version: " + "; ".join(cases))
     out["edge"] = cases
+    out["merged"] = _roll_merged_check(
+        eng, (dk, dk, dl, len(qh.keys), len(qh.seq)), cols, lut_d, k)
     return out
+
+
+def _roll_merged_check(eng, arrays, cols, lut_d, k):
+    """``RollEngine.run`` on the card over a full batch of the self plan's
+    intervals at n_steps drawn from 1-4,096 (and a few past the ladder):
+    one launch over both T classes, longest first, per interval equal to
+    the plain version batched by class on the card."""
+    import numpy as np
+    import torch
+
+    from sedef_tpu_torch.ops import roll_engine as re_
+    rng = np.random.default_rng(15)
+    q_keys, r_keys, r_locs, nr, rlen = arrays
+    pick = rng.choice(np.nonzero(cols[6] + 4200 < rlen)[0],
+                      re_.DEFAULT_BATCH)
+    cc = [c[pick].copy() for c in cols]
+    cc[5][:] = rng.integers(1, re_.T_PAD_LADDER[-1] + 1, len(pick))
+    cc[5][:4] = [re_.T_PAD_LADDER[-1] + 1, 512, 513, 4096]
+    before = re_._roll_batch.launches
+    t0 = time.perf_counter()
+    got = eng.run(q_keys, r_keys, r_locs, nr, rlen, *cc)
+    wall = time.perf_counter() - t0
+    launches = re_._roll_batch.launches - before
+    if launches != 1:
+        raise AssertionError(f"the merged roll call made {launches} launches")
+    classes = re_._t_classes(cc[5])
+    for T in re_.T_PAD_LADDER:
+        sel = classes == T
+        want = re_._roll_batch_torch(
+            r_keys, r_locs, nr, lut_d, q_keys,
+            *[torch.from_numpy(c[sel]).cuda() for c in cc],
+            W=re_.DEFAULT_W, SQ=re_.DEFAULT_SQ,
+            INIT_PAD=re_.DEFAULT_INIT_PAD, T_PAD=T, n_shift=2 * k,
+            steps_max=int(cc[5][sel].max()))
+        _compare("_roll_batch", [torch.from_numpy(g[sel]) for g in got],
+                 [w.cpu() for w in want])
+    if got[2][classes == 0].any():
+        raise AssertionError("an interval past the ladder rolled on the "
+                             "card")
+    n = {T: int((classes == T).sum()) for T in (*re_.T_PAD_LADDER, 0)}
+    log(f"[stage1] roll kernel, one merged call (RollEngine.run) over "
+        f"{len(pick)} intervals of n_steps 1-{re_.T_PAD_LADDER[-1] + 1} "
+        f"(classes {n}): 1 launch, {wall * 1e3:.3f} ms with its upload "
+        f"and pull; per interval = the plain version batched by class")
+    return {"classes": n, "launches": launches, "wall_ms": wall * 1e3}
 
 
 def _stage1_roll(fa, timer, k, w):
@@ -2454,7 +2740,7 @@ def _stage1_roll(fa, timer, k, w):
         seeder._device_roll_results = spy
         try:
             with _Stage1Path(f"{name} roll engine", ("_roll_batch",)) \
-                    as path, timer:
+                    as path, timer, RollSplit() as split:
                 t0 = time.perf_counter()
                 dev = seeder.initial_search(qh, rh, same, DEFAULT,
                                             use_device="cuda")
@@ -2462,6 +2748,10 @@ def _stage1_roll(fa, timer, k, w):
         finally:
             seeder.ROLL_DEVICE_MIN = old
             seeder._device_roll_results = real
+        sp = split.read()
+        if not sp["one_each"]:
+            raise AssertionError(f"roll engine {name}: a roll call is not "
+                                 f"one upload, launch and pull")
         if [h.to_bed() for h in dev] != [h.to_bed() for h in host]:
             raise AssertionError(f"roll engine {name} rc={rh.seq.is_rc}: "
                                  f"seeds != host route's")
@@ -2470,7 +2760,8 @@ def _stage1_roll(fa, timer, k, w):
                                  f"rolls, not one")
         plan, res, wall_roll = seen[0]
         steps = plan[1][:, 4]
-        classes = {T: int(sum(re_._t_class(int(s)) == T for s in steps))
+        tclass = re_._t_classes(steps)
+        classes = {T: int((tclass == T).sum())
                    for T in (*re_.T_PAD_LADDER, 0)}
         rolled = int(steps[res[2]].sum())
         pair = {"rc": rh.seq.is_rc, "intervals": len(steps),
@@ -2479,11 +2770,12 @@ def _stage1_roll(fa, timer, k, w):
                 "steps_per_s": rolled / wall_roll, "seeds": len(host),
                 "search_wall_card_s": wall_dev,
                 "search_wall_host_s": wall_host,
-                "launches": path.counts["_roll_batch"]}
+                "launches": path.counts["_roll_batch"], "split": sp}
         out["pairs"].append(pair)
+        other = "its reverse complement" if rh.seq.is_rc else "itself"
+        log(_roll_split_line(f"{name} vs {other}", sp))
         log(f"[stage1] roll engine {name} ({len(seq)} bp, the dense "
-            f"genome's first chromosome) vs "
-            f"{'its reverse complement' if rh.seq.is_rc else 'itself'}: "
+            f"genome's first chromosome) vs {other}: "
             f"{len(steps)} intervals (T classes {classes}), {pair['ok']} "
             f"rolled on the card in {pair['launches']} launches ({rolled} "
             f"steps in {wall_roll:.3f} s with the copies = "
@@ -3074,7 +3366,11 @@ def main() -> int:
                      "plain_ms", "bound_ms", "bound_by", "library_ms", "at",
                      "bound_formula_ms")},
                  "paths": STAGE1_PATHS[name],
-                 "on_path": name not in ROW_KERNELS}
+                 "on_path": name not in ROW_KERNELS,
+                 **({"ptxas": ROLL_PTXAS, **{
+                     key: v for key, v in STAGE1[name].items()
+                     if key.startswith("ns_per_")}}
+                    if name == "_roll_batch" else {})}
                 for name, (src, ref) in STAGE1_KERNELS.items()]
     log(f"[smoke] took {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))

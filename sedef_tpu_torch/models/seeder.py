@@ -529,11 +529,11 @@ def _device_roll_results(query_hash: MinimizerIndex,
         eng = _ROLL_ENGINES[(k, id(cfg))] = RollEngine(k, lut)
     qk, _ = query_hash.device_arrays(device)
     rk, rl = ref_hash.device_arrays(device)
-    # per-interval window columns
+    # per-interval window columns, then qws, qwe, t0, rws0, init_cnt,
+    # n_steps, re0 (on a card: one upload, one launch, one pull)
     woff = np.repeat(np.arange(len(win)), win[:, 3])
     return eng.run(qk, rk, rl, len(ref_hash.keys), len(ref_hash.seq),
-                   win[woff, 1], win[woff, 2], iv[:, 0], iv[:, 2],
-                   iv[:, 3], iv[:, 4], iv[:, 5])
+                   *win[woff, 1:3].T, *iv[:, [0, 2, 3, 4, 5]].T)
 
 
 class PreparedSearch:

@@ -89,12 +89,13 @@ def cuda_sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def build_cuda(verbose: bool = False, force: bool = False
-               ) -> pathlib.Path:
+def build_cuda(verbose: bool = False, force: bool = False,
+               log: dict[str, str] | None = None) -> pathlib.Path:
     """The CUDA kernels: ``nvcc -gencode arch=compute_90a,code=sm_90a``,
     one compile per source in parallel, then one link.  ``verbose`` adds
     ``-Xptxas -v`` (registers, shared memory, spills per kernel) and
-    echoes the compiler's output."""
+    echoes the compiler's output; ``log``, where given, receives each
+    source's compiler output by its stem."""
     srcs = cuda_sources()
     deps = srcs + sorted(CSRC.glob("*.cuh"))
     if not (force or _stale(KERNELS_SO, deps)):
@@ -116,8 +117,10 @@ def build_cuda(verbose: bool = False, force: bool = False
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
         failed = None
-        for cmd, proc in procs:
+        for src, (cmd, proc) in zip(srcs, procs):
             out, err = proc.communicate()
+            if log is not None:
+                log[src.stem] = out + err
             if verbose or proc.returncode:
                 sys.stderr.write(out + err)
             if proc.returncode and failed is None:

@@ -74,7 +74,8 @@ import numpy as np
 import torch
 
 from .jaccard_batch import merge_rank_intersection
-from .wavefront import _check, _kernels, _launch, _ptr, _same_device
+from .wavefront import (_check, _kernels, _launch, _ptr, _pull, _same_device,
+                        _upload)
 
 INF32 = 2**31 - 1
 
@@ -386,28 +387,6 @@ KERNEL_WRAPPERS = (_span_intersections, _composition_ideals,
                    _window_sketches, _interval_verdicts)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
-
-
-def _upload(a: np.ndarray, device) -> torch.Tensor:
-    """a as an int32 tensor on ``device``: on a card one copy from pinned
-    memory queued on the current stream (the host does not wait)."""
-    t = torch.from_numpy(np.ascontiguousarray(a, np.int32))
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
-
-
-def _pull(t: torch.Tensor):
-    """(t on the host, the CUDA event after its copy or None): on a card
-    one copy into pinned memory queued on the current stream; the host
-    reads it once the event has passed."""
-    if t.device.type != "cuda":
-        return t, None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    done = torch.cuda.Event(enable_timing=True)
-    done.record(torch.cuda.current_stream(t.device))
-    return host, done
 
 
 class PendingPrefilter:

@@ -30,11 +30,13 @@ pass encounters the same interval tuple; windows whose candidate set was
 altered by hit-tree dedup fall back to the host roll (see
 models/seeder.py / native sedef_search).
 
-On a card a batch is one launch of ``csrc/roll_engine.cu`` (a warp per
-interval, every step inside the kernel); ``_roll_batch_torch`` is its plain
-version, ~60 tensor ops on (batch, W) int32 rows a roll step, launched one
-after another from a Python loop, which the CPU runs.  Intervals longer
-than the last T class roll on the host.
+On a card a chromosome pair's intervals of both T classes are one launch
+of ``csrc/roll_engine.cu`` (a warp per interval, its row in registers,
+every step inside the kernel), longest first, with one upload of the plan
+and one pull of the results; ``_roll_batch_torch`` is its plain version,
+~60 tensor ops on (batch, W) int32 rows a roll step, launched one after
+another from a Python loop, which the CPU runs batch by batch and class by
+class.  Intervals longer than the last T class roll on the host.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .wavefront import _check, _kernels, _launch, _same_device
+from .wavefront import (_check, _kernels, _launch, _pull, _same_device,
+                        _upload)
 
 INF32 = 2**31 - 1
 INT32_MIN = -2**31
@@ -54,6 +57,8 @@ DEFAULT_INIT_PAD = 192
 # on the host (ok=False)
 T_PAD_LADDER = (512, 4096)
 DEFAULT_BATCH = 1024
+# the row widths the kernel is built for (32 lanes of W / 32 entries)
+KERNEL_W = (64, 512)
 
 
 def _take1(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -245,20 +250,27 @@ def _roll_batch_torch(r_keys, r_locs, nr: int, limit_lut,
 def _roll_batch(r_keys, r_locs, nr: int, limit_lut,
                 q_keys, qws, qwe, t0, rws0, init_cnt, n_steps, re0,
                 W: int, SQ: int, INIT_PAD: int, T_PAD: int, n_shift: int,
-                init_max: int | None = None, steps_max: int | None = None):
-    """One batch of interval rolls: (best_j, best_steps, ok), as
-    ``_roll_batch_torch``.  On CUDA tensors one launch of
-    ``csrc/roll_engine.cu`` on the current stream (no synchronisation;
-    ``init_max`` / ``steps_max`` are not needed there: each interval loops
-    to its own counts); on CPU tensors the plain version."""
+                init_max: int | None = None, steps_max: int | None = None,
+                out=None):
+    """Interval rolls: (best_j, best_steps, ok), as ``_roll_batch_torch``.
+    On CUDA tensors one launch of ``csrc/roll_engine.cu`` on the current
+    stream (no synchronisation; W one of ``KERNEL_W``; ``init_max`` /
+    ``steps_max`` are not needed there: each interval loops to its own
+    counts); on CPU tensors the plain version.  ``out``: the three
+    outputs' tensors to write (``_roll_record``), returned."""
     cols = (qws, qwe, t0, rws0, init_cnt, n_steps, re0)
     arrays = (r_keys, r_locs, q_keys, limit_lut)
     dev = _same_device(*arrays, *cols)
     if dev.type == "cpu":
-        return _roll_batch_torch(r_keys, r_locs, nr, limit_lut, q_keys,
-                                 *cols, W=W, SQ=SQ, INIT_PAD=INIT_PAD,
-                                 T_PAD=T_PAD, n_shift=n_shift,
-                                 init_max=init_max, steps_max=steps_max)
+        got = _roll_batch_torch(r_keys, r_locs, nr, limit_lut, q_keys,
+                                *cols, W=W, SQ=SQ, INIT_PAD=INIT_PAD,
+                                T_PAD=T_PAD, n_shift=n_shift,
+                                init_max=init_max, steps_max=steps_max)
+        if out is None:
+            return got
+        for o, g in zip(out, got):
+            o.copy_(g)
+        return out
     for name, t in zip(("r_keys", "r_locs", "q_keys", "limit_lut", "qws",
                         "qwe", "t0", "rws0", "init_cnt", "n_steps", "re0"),
                        arrays + cols):
@@ -268,11 +280,11 @@ def _roll_batch(r_keys, r_locs, nr: int, limit_lut,
         raise ValueError("the plan columns must have one length")
     if min(t.shape[0] for t in arrays) < 1:
         raise ValueError("empty minimizer array or limit table")
+    if W not in KERNEL_W:
+        raise ValueError(f"the kernel's row takes W in {KERNEL_W}, not {W}")
     if not 1 <= SQ <= W:
         raise ValueError(f"the row (W={W}) must hold the query's SQ={SQ}")
-    best_j = torch.empty(B, dtype=torch.int32, device=dev)
-    best_steps = torch.empty(B, dtype=torch.int32, device=dev)
-    ok = torch.empty(B, dtype=torch.bool, device=dev)
+    best_j, best_steps, ok = _roll_record(B, dev)[1] if out is None else out
     if B:
         lib = _kernels()
         _launch(KERNEL_WRAPPERS[0], dev, lib.sedef_roll_batch,
@@ -284,6 +296,15 @@ def _roll_batch(r_keys, r_locs, nr: int, limit_lut,
     return best_j, best_steps, ok
 
 
+def _roll_record(B: int, dev):
+    """One buffer of 9 B bytes for a roll's outputs, and its three views:
+    best_j and best_steps (B,) int32, ok (B,) bool (one pull reads all)."""
+    rec = torch.empty(9 * B, dtype=torch.uint8, device=dev)
+    return rec, (rec[:4 * B].view(torch.int32),
+                 rec[4 * B:8 * B].view(torch.int32),
+                 rec[8 * B:].view(torch.bool))
+
+
 # the wrapper that launches this module's kernel, with its launch count;
 # counted through this tuple, so that a caller that wraps the module's
 # ``_roll_batch`` (chip_smoke.py's op timer) leaves the count alone
@@ -291,19 +312,22 @@ KERNEL_WRAPPERS = (_roll_batch,)
 _roll_batch.launches = 0
 
 
-def _t_class(n: int) -> int:
-    for t in T_PAD_LADDER:
-        if n <= t:
-            return t
-    return 0  # too large -> host
+def _t_classes(n_steps) -> np.ndarray:
+    """Each interval's roll-length class: the smallest T of T_PAD_LADDER
+    >= its n_steps, 0 past the last (the host rolls those)."""
+    ladder = np.asarray(T_PAD_LADDER, np.int32)
+    i = np.searchsorted(ladder, np.asarray(n_steps), side="left")
+    return np.where(i < len(ladder), ladder[np.minimum(i, len(ladder) - 1)],
+                    0).astype(np.int32)
 
 
 class RollEngine:
-    """Batches planned intervals by roll-length class and runs them on the
-    device the minimizer arrays live on.  ``run`` takes the plan arrays
-    (see native sedef_search_plan) plus the int32 minimizer key/loc
-    tensors and returns per-interval (best_j, best_steps, ok) in plan
-    order."""
+    """Rolls planned intervals on the device the minimizer arrays live on:
+    on a card all of a pair's intervals in one launch (``_run_merged``),
+    on the CPU by roll-length class in batches.  ``run`` takes the plan
+    arrays (see native sedef_search_plan) plus the int32 minimizer
+    key/loc tensors and returns per-interval (best_j, best_steps, ok) in
+    plan order."""
 
     def __init__(self, kmer_size: int, limit_lut: np.ndarray,
                  W: int = DEFAULT_W, SQ: int = DEFAULT_SQ,
@@ -318,35 +342,67 @@ class RollEngine:
 
     def run(self, q_keys, r_keys, r_locs, nr: int, rlen: int,
             qws, qwe, t0, rws0, init_cnt, n_steps, re0):
-        n = len(qws)
+        plan = np.stack([np.asarray(c, np.int32) for c in
+                         (qws, qwe, t0, rws0, init_cnt, n_steps, re0)])
+        if r_keys.device.type == "cuda":
+            return self._run_merged(q_keys, r_keys, r_locs, nr, plan)
+        n = plan.shape[1]
         best_j = np.zeros(n, np.int32)
         best_steps = np.zeros(n, np.int32)
         ok = np.zeros(n, bool)
-        if n == 0:
-            return best_j, best_steps, ok
         dev = r_keys.device
         lut = torch.from_numpy(self.limit_lut).to(dev)
-        cols = [np.asarray(a, np.int32) for a in
-                (qws, qwe, t0, rws0, init_cnt, n_steps, re0)]
-        tclass = np.array([_t_class(int(x)) for x in cols[5]], np.int32)
-        pending = []  # queue every batch, read once at the end
-        for T in sorted(set(tclass.tolist())):
-            if T == 0:
-                continue  # host fallback
+        tclass = _t_classes(plan[5])
+        for T in T_PAD_LADDER:  # class 0: the host rolls them
             sel = np.nonzero(tclass == T)[0]
             for off in range(0, len(sel), self.batch):
                 part = sel[off:off + self.batch]
-                args = [torch.from_numpy(np.ascontiguousarray(c[part]))
-                        .to(dev) for c in cols]
-                out = _roll_batch(
-                    r_keys, r_locs, nr, lut, q_keys, *args,
+                args = torch.from_numpy(np.ascontiguousarray(plan[:, part]))
+                bj, bs, okk = _roll_batch(
+                    r_keys, r_locs, nr, lut, q_keys, *args.to(dev).unbind(0),
                     W=self.W, SQ=self.SQ, INIT_PAD=self.INIT_PAD,
                     T_PAD=T, n_shift=self.n_shift,
-                    init_max=int(cols[4][part].max()),
-                    steps_max=int(cols[5][part].max()))
-                pending.append((part, out))
-        for part, (bj, bs, okk) in pending:
-            best_j[part] = bj.cpu().numpy()
-            best_steps[part] = bs.cpu().numpy()
-            ok[part] = okk.cpu().numpy()
+                    init_max=int(plan[4, part].max()),
+                    steps_max=int(plan[5, part].max()))
+                best_j[part] = bj.cpu().numpy()
+                best_steps[part] = bs.cpu().numpy()
+                ok[part] = okk.cpu().numpy()
+        return best_j, best_steps, ok
+
+    def _run_merged(self, q_keys, r_keys, r_locs, nr: int, plan):
+        """``run`` as the card does it: one launch over every interval of a
+        T class at the last class's T_PAD (an interval's class is the
+        smallest T >= its n_steps, so no cap binds and ``ok`` is the
+        same), longest first, so that the long chains start first; one
+        upload of the limit table and the (7, m) plan, one pull of the
+        9 m-byte record.  Runs on any device (the CPU: the plain version
+        over the merged plan)."""
+        n = plan.shape[1]
+        best_j = np.zeros(n, np.int32)
+        best_steps = np.zeros(n, np.int32)
+        ok = np.zeros(n, bool)
+        if (plan < 0).any():
+            raise ValueError("the plan's columns must not be negative")
+        sel = np.nonzero(_t_classes(plan[5]))[0]
+        order = sel[np.argsort(-plan[5, sel], kind="stable")]
+        m = len(order)
+        if m == 0:
+            return best_j, best_steps, ok
+        dev = r_keys.device
+        nl = len(self.limit_lut)
+        buf = _upload(np.concatenate([self.limit_lut,
+                                      plan[:, order].ravel()]), dev)
+        rec, out = _roll_record(m, dev)
+        _roll_batch(r_keys, r_locs, nr, buf[:nl], q_keys,
+                    *buf[nl:].view(7, m).unbind(0), W=self.W, SQ=self.SQ,
+                    INIT_PAD=self.INIT_PAD, T_PAD=T_PAD_LADDER[-1],
+                    n_shift=self.n_shift, init_max=int(plan[4, order].max()),
+                    steps_max=int(plan[5, order[0]]), out=out)
+        host, done = _pull(rec)
+        if done is not None:
+            done.synchronize()
+        host = host.numpy()
+        best_j[order] = host[:4 * m].view(np.int32)
+        best_steps[order] = host[4 * m:8 * m].view(np.int32)
+        ok[order] = host[8 * m:].view(bool)
         return best_j, best_steps, ok

@@ -580,6 +580,28 @@ def _launch(wrapper, dev: torch.device, fn, *args) -> None:
         wrapper.launches += 1
 
 
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """a as an int32 tensor on ``device``: on a card one copy from pinned
+    memory queued on the current stream (the host does not wait)."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.int32))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _pull(t: torch.Tensor):
+    """(t on the host, the CUDA event after its copy or None): on a card
+    one copy into pinned memory queued on the current stream; the host
+    reads it once the event has passed."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event(enable_timing=True)
+    done.record(torch.cuda.current_stream(t.device))
+    return host, done
+
+
 def _ptr(t) -> int | None:
     return t.data_ptr() if t is not None else None
 

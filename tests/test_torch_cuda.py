@@ -776,6 +776,43 @@ def test_stage1_roll_kernel_matches_plain(dev, T_PAD, W, SQ):
     assert not want[2].all()
 
 
+@pytest.mark.parametrize("W,SQ", [(512, 160), (64, 48)])
+def test_stage1_roll_merged_call_matches_plain(dev, W, SQ):
+    """``RollEngine.run`` on the card: one launch over the edge rows and
+    rows of every n_steps class edge (1 to 4,097), longest first, equal
+    per interval to the plain version batched by class on the card."""
+    from sedef_tpu_torch.config import DEFAULT
+    from sedef_tpu_torch.ops import roll_engine as re_
+    from sedef_tpu_torch.ops.stat_model import relaxed_jaccard_estimate
+    qh, rh, cols = _roll_edge_batch(np.random.default_rng(9))
+    extra = [1, 511, 512, 513, 2000, 4095, 4096, 4097]
+    cols = [np.concatenate([c, np.full(len(extra), c[0], np.int32)])
+            for c in cols]
+    cols[5][-len(extra):] = extra
+    lut = np.array([relaxed_jaccard_estimate(s, 12, DEFAULT)
+                    for s in range(161)], np.int32)
+    qk, _ = qh.device_arrays(dev)
+    rk, rl = rh.device_arrays(dev)
+    eng = re_.RollEngine(12, lut, W=W, SQ=SQ)
+    before = re_._roll_batch.launches
+    got = eng.run(qk, rk, rl, len(rh.keys), len(rh.seq), *cols)
+    assert re_._roll_batch.launches == before + 1
+    classes = re_._t_classes(cols[5])
+    for T in re_.T_PAD_LADDER:
+        sel = classes == T
+        want = re_._roll_batch_torch(
+            rk, rl, len(rh.keys), torch.from_numpy(lut).to(dev), qk,
+            *[torch.from_numpy(c[sel]).to(dev) for c in cols], W=W, SQ=SQ,
+            INIT_PAD=192, T_PAD=T, n_shift=24)
+        for g, w in zip(got, want):
+            assert g.dtype == w.cpu().numpy().dtype
+            assert np.array_equal(g[sel], w.cpu().numpy())
+    assert not got[2][classes == 0].any()
+    with pytest.raises(ValueError):
+        re_.RollEngine(12, lut, W=128, SQ=SQ).run(
+            qk, rk, rl, len(rh.keys), len(rh.seq), *cols)
+
+
 def test_stage1_window_ideals_kernel_matches_plain(dev):
     from sedef_tpu_torch.config import DEFAULT
     from sedef_tpu_torch.native import lib as native

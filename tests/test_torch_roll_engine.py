@@ -183,8 +183,8 @@ def test_roll_batch_classes_and_overflow():
         for c, v in zip(rows, vals):
             c.append(v)
     cols2 = tuple(np.asarray(c, np.int32) for c in rows)
-    assert [re_._t_class(int(n)) for n in cols2[5]] == [
-        re_._t_class(int(cols[5][i0])), 4096, 0]
+    assert re_._t_classes(cols2[5]).tolist() == [
+        re_._t_classes(cols[5][i0:i0 + 1])[0], 4096, 0]
     bj, bs, ok = _run_both(qh, rh, cols2, batch=4)
     assert ok.tolist() == [True, True, False]
     init_len = DEFAULT.search.min_read_size
@@ -282,7 +282,7 @@ def test_roll_engine_empty_query_window():
     assert len(cols[0])
     row = [int(c[0]) for c in cols]
     row[1] = row[0]  # qwe = qws
-    assert re_._t_class(row[5]) == 4096
+    assert re_._t_classes([row[5]])[0] == 4096
     short = list(row)
     short[5] = 500  # the same interval cut to the 512 class
     cols2 = tuple(np.asarray(c, np.int32) for c in zip(row, short))
@@ -375,48 +375,97 @@ def test_roll_batch_refuses_other_devices():
 
 
 def roll_kernel_model(r_keys, r_locs, nr, limit_lut, q_keys, cols, W, SQ,
-                      INIT_PAD, T_PAD, n_shift):
-    """``csrc/roll_engine.cu`` one interval at a time in plain Python: the
-    row as the list of its ln live entries (INF past them), a key's place
-    by the count of live keys below it, each interval looping to its own
-    counts (capped at INIT_PAD / T_PAD), the boundary index read through
-    the kernel's ``take1``."""
-    INF, MIN = 2**31 - 1, -2**31
-    r_keys, r_locs, q_keys = (np.asarray(a).tolist()
-                              for a in (r_keys, r_locs, q_keys))
-    limit_lut = np.asarray(limit_lut).tolist()
+                      INIT_PAD, T_PAD, n_shift, stats=None):
+    """``csrc/roll_engine.cu`` one interval (one warp) at a time in NumPy,
+    as the kernel holds and moves its data:
+
+    * the row as 32 lanes of E = W / 32 registers, lane-major (lane l:
+      entries [E l, E l + E));
+    * a key's place: each lane's E compares, summed over the lanes (the
+      warp's ``__reduce_add_sync``);
+    * an entry: the select tree on its index's bits in every lane, then
+      the owning lane's value (``__shfl_sync``);
+    * an insert or an erase: an E-wide shift in each lane with the carry
+      from the lane below (``__shfl_up_sync``) or above
+      (``__shfl_down_sync``, INF past the last), the carry taken before
+      the search;
+    * the boundary entry read from the row before the update (an add:
+      row[Bp] where 0 <= Bp <= W - 2, after the update elsewhere);
+    * the cursors as windows of 32 loci and keys, the next 32 loaded
+      ahead and taking the window's place at its end;
+    * phase B from change to change: the next step at which a cursor's
+      test holds, from the locus at the cursor.
+
+    ``stats`` (a dict) counts the cursors' window refills, the adds that
+    read the boundary after the update, and the roll steps skipped."""
+    INF, MIN, NEVER = 2**31 - 1, -2**31, 1 << 40
+    E = W // 32
+    lanes = np.arange(32)
+    r_keys, r_locs, q_keys, limit_lut = (
+        np.asarray(a, np.int64) for a in (r_keys, r_locs, q_keys, limit_lut))
+    stats = {} if stats is None else stats
+    for key in ("refills", "late_boundary", "skipped"):
+        stats.setdefault(key, 0)
 
     def gather(a, i):
-        return a[max(min(i, len(a) - 1), 0)]
+        return a[np.clip(i, 0, len(a) - 1)]
 
-    def take1(row, i):
+    def pick(r, i):  # the select tree on i's bits, in every lane
+        t = r.copy()
+        w = 1
+        while w < E:
+            for j in range(0, E, 2 * w):
+                t[:, j] = t[:, j + w] if i & w else t[:, j]
+            w *= 2
+        return t[:, 0]
+
+    def row_at(r, i):
+        return int(pick(r, i & (E - 1))[i // E])
+
+    def take1(r, i):
         i = min(i, W - 1)
         if i < 0:
             i += W
-        if i < 0:
-            return MIN
-        return row[i] if i < len(row) else INF
+        v = row_at(r, max(i, 0))
+        return MIN if i < 0 else v
 
-    def lower_pos(row, h):
-        return sum(1 for x in row if (x >> 2) < h)
+    def lower_pos(r, h):
+        if 0 <= h < 1 << 29:
+            c = (r < h << 2).sum(axis=1)
+        else:
+            c = ((r >> 2) < h).sum(axis=1)
+        return int(c.sum())
 
-    def vadd(row, S, h, bit):
-        pos = lower_pos(row, h)
-        cur = take1(row, pos)
+    def vadd(r, S, h, bit):
+        carry = np.concatenate([r[:1, E - 1], r[:-1, E - 1]])
+        inside = 0 <= S["Bp"] <= W - 2
+        ob = row_at(r, S["Bp"] if inside else 0)
+        pos = lower_pos(r, h)
+        cur = row_at(r, min(pos, W - 1))
+        d = pos - E * lanes
         exists = (cur >> 2) == h and pos < W
         flag_h = cur & 3 if exists else 0
         if exists and flag_h & bit:
             return
-        if not exists and len(row) >= W:
+        if not exists and S["ln"] >= W:
             S["ovf"] = True
             return
         if exists:
-            row[pos] = cur | bit
+            for j in range(E):
+                r[:, j] = np.where(j == d, r[:, j] | bit, r[:, j])
         else:
-            row.insert(pos, (h << 2) | bit)
+            for j in reversed(range(E)):  # from the top: r[:, j - 1] old
+                below = r[:, j - 1] if j else carry
+                r[:, j] = np.where(j < d, r[:, j],
+                                   np.where(j == d, h << 2 | bit, below))
+            S["ln"] += 1
             if pos <= S["Bp"]:
                 S["Bp"] += 1
-        bcur = take1(row, S["Bp"])
+        if inside:  # B's entry before the update: its key decides
+            bcur = ob
+        else:
+            stats["late_boundary"] += 1
+            bcur = take1(r, S["Bp"])
         if h < (bcur >> 2):
             if (flag_h | bit if exists else bit) == 3:
                 S["inter"] += 1
@@ -424,61 +473,100 @@ def roll_kernel_model(r_keys, r_locs, nr, limit_lut, q_keys, cols, W, SQ,
                 S["inter"] -= (bcur & 3) == 3
                 S["Bp"] -= 1
 
-    def vremove(row, S, h, bit):
-        pos = lower_pos(row, h)
-        cur = take1(row, pos)
+    def vremove(r, S, h, bit):
+        carry = np.concatenate([r[1:, 0], [INF]])
+        bcur = take1(r, S["Bp"])
+        b2 = take1(r, S["Bp"] + 1)
+        pos = lower_pos(r, h)
+        cur = row_at(r, min(pos, W - 1))
+        d = pos - E * lanes
         found = (cur >> 2) == h and pos < W
         flag_h = cur & 3 if found else 0
         if not (found and flag_h & bit):
             return
         erase = flag_h == bit
-        if h <= (take1(row, S["Bp"]) >> 2):
+        if h <= (bcur >> 2):
             S["inter"] -= flag_h == 3
             if erase:
                 S["Bp"] += 1
-                S["inter"] += (S["Bp"] < len(row)
-                               and (take1(row, S["Bp"]) & 3) == 3)
+                S["inter"] += S["Bp"] < S["ln"] and (b2 & 3) == 3
         if erase:
-            del row[pos]
+            for j in range(E):  # from the bottom: r[:, j + 1] still old
+                above = r[:, j + 1] if j < E - 1 else carry
+                r[:, j] = np.where(j < d, r[:, j], above)
+            S["ln"] -= 1
             if pos < S["Bp"]:
                 S["Bp"] -= 1
         else:
-            row[pos] = cur & ~bit
+            for j in range(E):
+                r[:, j] = np.where(j == d, r[:, j] & ~bit, r[:, j])
+
+    class Cursor:
+        def __init__(self, start):
+            self.c = self.base = start
+            self.win = self.load(start)
+            self.ahead = self.load(start + 32)
+
+        @staticmethod
+        def load(base):  # one coalesced load: lane i reads [base + i]
+            return gather(r_locs, base + lanes), gather(r_keys, base + lanes)
+
+        def at(self):  # (locus, key) by shuffle from lane c - base
+            return (int(self.win[0][self.c - self.base]),
+                    int(self.win[1][self.c - self.base]))
+
+        def advance(self):
+            self.c += 1
+            if self.c - self.base == 32:
+                self.win, self.base = self.ahead, self.base + 32
+                self.ahead = self.load(self.base + 32)
+                stats["refills"] += 1
 
     out = [[], [], []]
     for qws, qwe, t0, rws0, init_cnt, n_steps, re0 in zip(
             *[np.asarray(c).tolist() for c in cols]):
-        keys = sorted(gather(q_keys, qws + j) if qws + j < qwe else INF
-                      for j in range(SQ))
-        row = [(v << 2) | 1 for i, v in enumerate(keys)
-               if v != INF and (i == 0 or keys[i - 1] != v)]
-        s = len(row)
-        limit = limit_lut[min(s, len(limit_lut) - 1)]
-        S = dict(Bp=s - 1, inter=0, ovf=qwe - qws > SQ)
-        for i in range(min(init_cnt, INIT_PAD)):
-            h = gather(r_keys, rws0 + i)
+        keys = np.sort(np.where(qws + np.arange(SQ) < qwe,
+                                gather(q_keys, qws + np.arange(SQ)), INF))
+        keep = (keys != INF) & np.r_[True, keys[1:] != keys[:-1]]
+        s = int(keep.sum())
+        buf = np.full(W, INF, np.int64)
+        buf[:s] = keys[keep] << 2 | 1
+        r = buf.reshape(32, E)
+        limit = int(limit_lut[min(s, len(limit_lut) - 1)])
+        S = dict(ln=s, Bp=s - 1, inter=0, ovf=qwe - qws > SQ)
+        cur = Cursor(rws0)
+        for _ in range(min(init_cnt, INIT_PAD)):
+            h = cur.at()[1]
             if h >> n_shift != 2:
-                vadd(row, S, h, 2)
+                vadd(r, S, h, 2)
+            cur.advance()
 
         def jac():
             return S["inter"] if S["inter"] >= limit else S["inter"] - limit
 
         best = (jac(), 0)
-        rws, rwe, rs, re = rws0, rws0 + init_cnt, t0, re0
-        for t in range(min(n_steps, T_PAD)):
-            h = gather(r_keys, rws)
-            can = rws < nr and gather(r_locs, rws) < rs + 1
-            if can and h >> n_shift != 2:
-                vremove(row, S, h, 2)
-            rws += can
-            h = gather(r_keys, rwe)
-            can = rwe < nr and gather(r_locs, rwe) == re
-            if can and h >> n_shift != 2:
-                vadd(row, S, h, 2)
-            rwe += can
+        n_roll = min(n_steps, T_PAD)
+        R, A = Cursor(rws0), Cursor(rws0 + init_cnt)
+        t = 0
+        while True:
+            (loc_r, h_r), (loc_a, h_a) = R.at(), A.at()
+            tr = max(loc_r - t0, t) if R.c < nr else NEVER
+            ta = loc_a - re0 if A.c < nr and loc_a - re0 >= t else NEVER
+            stats["skipped"] += min(tr, ta, n_roll) - t
+            t = min(tr, ta)
+            if t >= n_roll:
+                break
+            if tr == t:
+                if h_r >> n_shift != 2:
+                    vremove(r, S, h_r, 2)
+                R.advance()
+            if ta == t:
+                if h_a >> n_shift != 2:
+                    vadd(r, S, h_a, 2)
+                A.advance()
             if jac() > best[0]:
                 best = (jac(), t + 1)
-            rs, re = rs + 1, re + 1
+            t += 1
         out[0].append(best[0])
         out[1].append(best[1])
         out[2].append(not (S["ovf"] or init_cnt > INIT_PAD
@@ -489,18 +577,91 @@ def roll_kernel_model(r_keys, r_locs, nr, limit_lut, q_keys, cols, W, SQ,
 
 @needs_native
 @pytest.mark.parametrize("T_PAD,W,SQ", [(512, 512, 160), (4096, 512, 160),
-                                        (4096, 64, 48), (512, 64, 16)])
+                                        (4096, 64, 48), (512, 64, 16),
+                                        (4096, 64, 16)])
 def test_roll_kernel_model_matches_plain(T_PAD, W, SQ):
-    """The kernel's design (its row, its loops, its boundary reads) as a
-    Python model against the plain version on the edge rows, at the
-    card's capacities and at a store of 64 entries that overflows."""
+    """The kernel's design (its register row, its reduce search, its
+    carried shifts, its boundary reads, its prefetched cursor windows and
+    its change-to-change roll) as a NumPy model against the plain version
+    on the edge rows, at the card's capacities and at a store of 64
+    entries that overflows; the cursors cross window edges, empty query
+    windows read the boundary after the update, and most steps are
+    skipped."""
     qh, rh, cols = _edge_batch(W=W, SQ=SQ)
     args = _batch_args(qh, rh, cols)
     want = re_._roll_batch_torch(*args, W=W, SQ=SQ, INIT_PAD=192,
                                  T_PAD=T_PAD, n_shift=24)
+    stats = {}
     got = roll_kernel_model(rh.keys, rh.locs, len(rh.keys), lut(12),
-                            qh.keys, cols, W, SQ, 192, T_PAD, 24)
+                            qh.keys, cols, W, SQ, 192, T_PAD, 24, stats)
     for g, w_ in zip(got, want):
         np.testing.assert_array_equal(g, w_.numpy())
+    assert stats["refills"] > 0 and stats["late_boundary"] > 0
+    assert stats["skipped"] > np.minimum(cols[5], T_PAD).sum() // 2
     if W == 64 and SQ == 48:
         assert not want[2].numpy().all()
+
+
+def _mixed_steps(cols):
+    """The edge rows and the first row again at n_steps on either side of
+    each class's edge, 1 and 4,097 included."""
+    extra = [1, 511, 512, 513, 2000, 4095, 4096, 4097]
+    return tuple(np.concatenate([c, np.full(len(extra), c[0], np.int32)])
+                 for c in cols[:5]) + (
+        np.concatenate([cols[5], np.asarray(extra, np.int32)]),
+        np.concatenate([cols[6], np.full(len(extra), cols[6][0],
+                                         np.int32)]))
+
+
+def test_t_classes_match_the_reference():
+    n = np.r_[0:20, 500:530, 4080:4110, 10**6]
+    got = re_._t_classes(n)
+    assert got.dtype == np.int32
+    assert got.tolist() == [ref_re._t_class(int(x)) for x in n]
+
+
+@needs_native
+def test_roll_engine_merged_call_equals_per_class_and_reference(
+        monkeypatch):
+    """The card's call (``RollEngine._run_merged``: one launch over both T
+    classes at T_PAD 4,096, longest first, one upload, one pull), run on
+    the CPU over the plain version, gives per interval what the per-class
+    batches of ``run`` on the CPU give, and what ``sedef_tpu``'s
+    ``RollEngine.run`` gives on the same plan; intervals past the ladder
+    stay (0, 0, False)."""
+    qh, rh, cols = _edge_batch()
+    cols = _mixed_steps(cols)
+    k = 12
+    qk, _ = qh.device_arrays("cpu")
+    rk, rl = rh.device_arrays("cpu")
+    eng = re_.RollEngine(k, lut(k), batch=4)
+    calls = []
+    real = re_._roll_batch
+
+    def spy(*a, **kw):
+        calls.append((a[10].clone(), kw["T_PAD"]))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(re_, "_roll_batch", spy)
+    merged = eng._run_merged(qk, rk, rl, len(rh.keys), np.stack(cols))
+    assert len(calls) == 1 and calls[0][1] == re_.T_PAD_LADDER[-1]
+    steps = calls[0][0].numpy()
+    assert (np.diff(steps) <= 0).all()
+    classes = re_._t_classes(cols[5])
+    assert len(steps) == int((classes > 0).sum())
+    assert {512, 4096, 0} <= set(classes.tolist())
+    calls.clear()
+    per_class = eng.run(qk, rk, rl, len(rh.keys), len(rh.seq), *cols)
+    assert sorted(T for _, T in calls) == [
+        T for T in re_.T_PAD_LADDER
+        for _ in range(-(-int((classes == T).sum()) // 4))]
+    want = ref_re.RollEngine(k, lut(k), batch=4).run(
+        qh.keys.astype(np.int32), rh.keys.astype(np.int32),
+        rh.locs.astype(np.int32), len(rh.keys), len(rh.seq), *cols)
+    for m, p, w_ in zip(merged, per_class, want):
+        assert m.dtype == p.dtype == w_.dtype
+        np.testing.assert_array_equal(m, p)
+        np.testing.assert_array_equal(m, w_)
+    past = classes == 0
+    assert not merged[2][past].any() and not merged[0][past].any()
+    assert merged[2].any()
