@@ -1180,7 +1180,7 @@ def phase_main_path(genomes, tmp):
             f"groups, launches {counts}; aligned.bed "
             f"{len(out['aligned'].splitlines())} rows and final.bed = host "
             f"route's; {len(rows)} final SDs, recall {rec}/{len(planted)}")
-        log(f"[main] {run} launch groups (route (S_q,S_t): groups, median "
+        log(f"[main] {run} launch groups (route (S_q,S_t): groups, mean "
             f"/ most problems a group): {_launch_groups(al)}")
     missing = [n for n in MAIN_PATH_KERNELS if launches[n] <= 0]
     if missing:
@@ -1225,7 +1225,7 @@ print(json.dumps({
     "pid": int(pid), "wall_s": wall, "problems": al.device_problems,
     "cells": al.device_cells, "launch_groups": al.device_batches,
     "floors": [al.DEVICE_BATCH_MIN, al.DEVICE_BATCH_MIN_CELLS],
-    "groups": {f"{r} ({q},{t})": len(g)
+    "groups": {f"{r} ({q},{t})": g[0]
                for (r, q, t), g in sorted(al.launch_groups.items())},
     "launches": {w.__name__: w.launches for w in wf.KERNEL_WRAPPERS}}))
 """
@@ -2399,9 +2399,7 @@ def _stage1_whole_job(fr, bins, name, timer, rows=False):
             log(f"[stage1] prefilter {name} (search_stage jobs=1, forced "
                 f"on): {stats['intervals']} intervals planned, "
                 f"{stats['pruned_a']} pruned in phase A, {stats['pruned_b']}"
-                f" in phase B, {stats['rows']} composition rows, device "
-                f"{stats['device_ms']:.3f} ms (CUDA events around each "
-                f"dispatch's upload, launch and pull, summed over the pairs)"
+                f" in phase B, {stats['rows']} composition rows"
                 f"; stage-1 wall {wall_dev:.3f} s on the "
                 f"card against {wall_host:.3f} s on the host; {len(host)} "
                 f"seeds, seeds.bed = host route's; kernel launches "
@@ -3130,10 +3128,9 @@ class _CudaTrace:
 
 
 def _launch_groups(al) -> str:
-    import statistics
     return "; ".join(
-        f"{route} ({S_q},{S_t}): {len(g)}, {statistics.median(g):g} / "
-        f"{max(g)}" for (route, S_q, S_t), g in sorted(
+        f"{route} ({S_q},{S_t}): {n}, {total / n:.3g} / {most}"
+        for (route, S_q, S_t), (n, total, most) in sorted(
             getattr(al, "launch_groups", {}).items()))
 
 
@@ -3196,7 +3193,7 @@ def phase_dense(fa, work, profile=False):
         f"{card['device_cells']} cells, {card['device_batches']} launch "
         f"groups; widest class (S_t, S_q, route) {widest}; peak device "
         f"memory {peak / 2**20:.1f} MiB; launches {counts}")
-    log(f"[dense] launch groups (route (S_q,S_t): groups, median / most "
+    log(f"[dense] launch groups (route (S_q,S_t): groups, mean / most "
         f"problems a group): {_launch_groups(al)}")
     log(f"[dense] {events.what} {busy:.3f} ms, "
         f"{100 * busy / 1e3 / card['wall_s']:.3f}% of the card run's wall; "

@@ -22,6 +22,7 @@ Usage examples (mirroring README.md:124-199 of the reference):
     python -m sedef_tpu_torch.cli pipeline genome.fa -o out_dir    # end-to-end
     python -m sedef_tpu_torch.cli pipeline genome.fa --device cpu  # no card
     python -m sedef_tpu_torch.cli pipeline genome.fa -W wgac.tab   # + report
+    python -m sedef_tpu_torch.cli pipeline genome.fa --trace t.json  # spans
     python -m sedef_tpu_torch.cli pipeline genome.fa --coordinator \
         localhost:29500 --num-processes 2 --process-id 0           # and 1
 """
@@ -147,6 +148,23 @@ def cmd_translate(args) -> int:
 
 
 def cmd_pipeline(args) -> int:
+    if not args.trace:
+        return _pipeline(args)
+    import json
+
+    from . import trace
+    trace.reset()
+    trace.enable()
+    try:
+        return _pipeline(args)
+    finally:
+        trace.disable()
+        with open(args.trace, "w") as f:
+            json.dump(trace.snapshot(), f)
+        print(f"trace written to {args.trace}", file=sys.stderr)
+
+
+def _pipeline(args) -> int:
     cfg = _cfg_from_args(args)
     aligner = WavefrontAligner(cfg, device=args.device)
     if args.num_processes:
@@ -263,6 +281,9 @@ def main(argv=None) -> int:
     pi.add_argument("-W", "--wgac",
                     help="WGAC tab file: run overlap + diff after final.bed"
                          " (sedef.sh -w)")
+    pi.add_argument("--trace", metavar="PATH", default=None,
+                    help="record the run's spans and counters and write "
+                         "them to PATH as one JSON object at its end")
     pi.add_argument("--coordinator", default=None,
                     help="multi-process mode: host:port of process 0")
     pi.add_argument("--num-processes", type=int, default=0,

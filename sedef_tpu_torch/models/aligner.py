@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import os
 
+from .. import trace
 from ..config import DEFAULT, Config
 from ..io.bed import Hit, SeqRef
 from ..ops.anchors import generate_anchors
@@ -160,6 +161,11 @@ def refine_chains(hits: list[Hit], qseq: str, rseq: str, orig: Hit,
     return out
 
 
+# the ``region`` span's attributes, by route
+_NATIVE = {"route": "native"}
+_PYTHON = {"route": "python"}
+
+
 def fast_align(query: str, ref: str, orig: Hit, kmer_size: int = 11,
                cfg: Config = DEFAULT,
                aligner: WavefrontAligner | None = None) -> list[Hit]:
@@ -168,9 +174,10 @@ def fast_align(query: str, ref: str, orig: Hit, kmer_size: int = 11,
                 and orig.query.is_rc == orig.ref.is_rc)
     if _native_region_gate(query, ref, aligner):
         from ..native import lib as _native
-        rows = _native.fast_align_region(
-            query.encode("ascii"), ref.encode("ascii"), same_chr,
-            orig.query_start, orig.ref_start, kmer_size, cfg)
+        with trace.span("region", _NATIVE):
+            rows = _native.fast_align_region(
+                query.encode("ascii"), ref.encode("ascii"), same_chr,
+                orig.query_start, orig.ref_start, kmer_size, cfg)
         if rows is not None:
             out: list[Hit] = []
             for qs, qe, rs, re, m, mm, gb, cigar in rows:
@@ -180,9 +187,20 @@ def fast_align(query: str, ref: str, orig: Hit, kmer_size: int = 11,
                 out.append(h)
             return out
         # native core bailed (giant DP / unexpected state): Python path
-    anchors = generate_anchors(query, ref, same_chr, orig.query_start,
-                               orig.ref_start, kmer_size)
-    path, bounds = chain_anchors(anchors, cfg)
+    with trace.span("region", _PYTHON):
+        return _python_region(query, ref, orig, kmer_size, cfg, aligner,
+                              same_chr)
+
+
+def _python_region(query: str, ref: str, orig: Hit, kmer_size: int,
+                   cfg: Config, aligner, same_chr: bool) -> list[Hit]:
+    """``fast_align``'s Python route: anchors, their chains, the chains'
+    alignments (gap DPs through ``aligner``), then their refinement."""
+    with trace.span("region.anchors"):
+        anchors = generate_anchors(query, ref, same_chr, orig.query_start,
+                                   orig.ref_start, kmer_size)
+    with trace.span("region.chain"):
+        path, bounds = chain_anchors(anchors, cfg)
 
     query_ref = SeqRef("QRY", False, len(query))
     ref_ref = SeqRef("REF", False, len(ref))

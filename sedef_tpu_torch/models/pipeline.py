@@ -25,6 +25,7 @@ from collections import defaultdict
 
 import torch
 
+from .. import trace
 from ..config import DEFAULT, Config
 from ..io.bed import Hit, canonical_swap
 from ..io.fasta import FastaReference, generate_translation
@@ -297,9 +298,11 @@ def _search_stage_sharded(fr, bins, cfg, cache, todo, shard_bp, jobs,
         for k, (i, j, is_rc) in enumerate(todo):
             t0 = time.time()
             job_lines: list[str] = []
-            for p in range(len(desc[k])):
-                sps = launched.pop((k, p)).result()
-                job_lines.extend(h.to_bed() for h in sps.finish(ex.submit))
+            with trace.span("search.job", {"i": i, "j": j, "rc": is_rc}):
+                for p in range(len(desc[k])):
+                    sps = launched.pop((k, p)).result()
+                    job_lines.extend(h.to_bed()
+                                     for h in sps.finish(ex.submit))
             in_flight -= len(desc[k])
             top_up()
             dt = sum(sum(times_of[(k, p)]) for p in range(len(desc[k])))
@@ -407,15 +410,16 @@ def search_stage(fr: FastaReference, bins: list[list[str]],
 
     def timed(t, job_idx=0):
         t0 = time.time()
-        if rotate:
-            d = devices[device_of[job_idx]]
-            with torch.cuda.device(d):
+        with trace.span("search.job", {"i": t[0], "j": t[1], "rc": t[2]}):
+            if rotate:
+                d = devices[device_of[job_idx]]
+                with torch.cuda.device(d):
+                    out = search_job(fr, bins[t[0]], bins[t[1]], t[2], cfg,
+                                     d, cache)
+            else:
                 out = search_job(fr, bins[t[0]], bins[t[1]], t[2], cfg,
-                                 d, cache)
-        else:
-            out = search_job(fr, bins[t[0]], bins[t[1]], t[2], cfg,
-                             device if device is not None else False,
-                             cache)
+                                 device if device is not None else False,
+                                 cache)
         return out, time.time() - t0
 
     lines: list[str] = []
@@ -446,13 +450,14 @@ def search_stage(fr: FastaReference, bins: list[list[str]],
             window = 2 * jobs
             futs: deque = deque()
             it = iter(enumerate(todo))
+            task = trace.carry(timed)
             for k, t in it:
-                futs.append(ex.submit(timed, t, k))
+                futs.append(ex.submit(task, t, k))
                 if len(futs) >= window:
                     break
             for k, t in it:
                 yield futs.popleft().result()
-                futs.append(ex.submit(timed, t, k))
+                futs.append(ex.submit(task, t, k))
             while futs:
                 yield futs.popleft().result()
 
@@ -650,7 +655,7 @@ def align_stage(bucket_lines: list[str], fr: FastaReference,
     if not isinstance(al, CoalescingAligner):
         al = CoalescingAligner(al)
     with ThreadPoolExecutor(max_workers=jobs) as ex:
-        results = list(ex.map(one, bucket_lines))
+        results = list(ex.map(trace.carry(one), bucket_lines))
     return [row for rows in results for row in rows]
 
 
@@ -724,12 +729,15 @@ class OverlappedTail:
                 h.query_end, h.ref_end = h.ref_end, h.query_end
             regions.append(h.to_bed(False))
         self.n_regions += len(regions)
+        task = trace.carry(self._region_task)
         for line in regions:
-            self.futs.append(self.ex.submit(self._region_task, line))
+            self.futs.append(self.ex.submit(task, line))
 
     def _region_task(self, line: str) -> tuple[list[str], list[str]]:
-        aligned = align_stage([line], self.fr, self.cfg, self.al)
-        final = reporter.stats_rows(aligned, self.fr, self.cfg)
+        with trace.span("tail.region"):
+            aligned = align_stage([line], self.fr, self.cfg, self.al)
+        with trace.span("tail.stats"):
+            final = reporter.stats_rows(aligned, self.fr, self.cfg)
         return aligned, final
 
     def finish(self) -> tuple[list[str], list[str], int]:
@@ -815,6 +823,13 @@ def run_pipeline(fasta_path: str, out_dir: str, cfg: Config = DEFAULT,
     additionally runs the per-SD overlap accounting and the per-base
     coverage diff after final.bed, like ``sedef.sh -w``
     (sedef.sh:246-257), writing ``wgac.report``."""
+    with trace.span("genome"):
+        return _run_pipeline(fasta_path, out_dir, cfg, nbuckets, aligner,
+                             jobs, quiet, force, wgac)
+
+
+def _run_pipeline(fasta_path, out_dir, cfg, nbuckets, aligner, jobs, quiet,
+                  force, wgac) -> dict[str, str]:
     os.makedirs(out_dir, exist_ok=True)
     fr = FastaReference(fasta_path)
     bins = generate_translation(fr)

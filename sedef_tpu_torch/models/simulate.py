@@ -13,6 +13,7 @@ from __future__ import annotations
 import random
 from dataclasses import dataclass
 
+from .. import trace
 from ..config import DEFAULT, Config
 from ..io.bed import Hit, SeqRef
 from ..ops.cigar import Alignment
@@ -65,12 +66,14 @@ def seed_align(q: str, r: str, cfg: Config = DEFAULT,
     the card where no aligner is given."""
     from .pipeline import auto_device
     from .seeder import initial_search
-    qh = MinimizerIndex(PackedSeq("qry", q), cfg.search.kmer_size,
-                        cfg.search.window_size, cfg=cfg)
-    rh = MinimizerIndex(PackedSeq("ref", r), cfg.search.kmer_size,
-                        cfg.search.window_size, cfg=cfg)
-    hits = initial_search(qh, rh, False, cfg,
-                          use_device=auto_device(aligner) or False)
+    with trace.span("seed"):
+        with trace.span("seed.index"):
+            qh = MinimizerIndex(PackedSeq("qry", q), cfg.search.kmer_size,
+                                cfg.search.window_size, cfg=cfg)
+            rh = MinimizerIndex(PackedSeq("ref", r), cfg.search.kmer_size,
+                                cfg.search.window_size, cfg=cfg)
+        hits = initial_search(qh, rh, False, cfg,
+                              use_device=auto_device(aligner) or False)
     return [SimHit(h.query_start, h.query_end, h.ref_start, h.ref_end,
                    h.aln) for h in hits]
 
@@ -217,34 +220,38 @@ def classify_pair(seq1: str, seq2: str, error: int,
     ref_end) — the hook the accuracy harness uses to run the REFERENCE
     engine through the identical classification shape
     (tools/accuracy_table.py --ref-oracle)."""
-    alen = (len(seq1) + len(seq2)) / 2
-    seeds = (seed_fn(seq1, seq2) if seed_fn
-             else seed_align(seq1, seq2, cfg, aligner))
-    t1 = []
-    t2 = []
-    for h in seeds:
-        w = max(h.query_end - h.query_start, h.ref_end - h.ref_start)
-        w = min(15000, int(5 * w))
-        t1.append((max(0, h.query_start - w),
-                   min(h.query_end + w, len(seq1))))
-        t2.append((max(0, h.ref_start - w), min(h.ref_end + w, len(seq2))))
-    c1, c2 = combine(t1), combine(t2)
-    jc1: list[tuple[int, int]] = []
-    jc2: list[tuple[int, int]] = []
-    if len(c1) >= 1 and len(c2) >= 1:
-        # chain on the combined subranges (first ranges, as the harness
-        # only handles the single-interval case; multiple intervals are
-        # rare and each is chained here for robustness)
-        for (s1, e1), (s2, e2) in zip(c1, c2):
-            if chain_fn is not None:
-                hits = chain_fn(seq1[s1:e1], seq2[s2:e2])
-            else:
-                hits = chain_align(seq1[s1:e1], seq2[s2:e2], cfg, aligner)
-            jc1.extend((s1 + h.query_start, s1 + h.query_end) for h in hits)
-            jc2.extend((s2 + h.ref_start, s2 + h.ref_end) for h in hits)
-    jcsum = coverage_sum(jc1) + coverage_sum(jc2)
-    if jcsum == 0:
-        return "miss"
-    if 50.0 * jcsum / alen < 100 - freeroom - error:
-        return "partial"
-    return "hit"
+    with trace.span("pair"):
+        alen = (len(seq1) + len(seq2)) / 2
+        seeds = (seed_fn(seq1, seq2) if seed_fn
+                 else seed_align(seq1, seq2, cfg, aligner))
+        t1 = []
+        t2 = []
+        for h in seeds:
+            w = max(h.query_end - h.query_start, h.ref_end - h.ref_start)
+            w = min(15000, int(5 * w))
+            t1.append((max(0, h.query_start - w),
+                       min(h.query_end + w, len(seq1))))
+            t2.append((max(0, h.ref_start - w),
+                       min(h.ref_end + w, len(seq2))))
+        c1, c2 = combine(t1), combine(t2)
+        jc1: list[tuple[int, int]] = []
+        jc2: list[tuple[int, int]] = []
+        if len(c1) >= 1 and len(c2) >= 1:
+            # chain on the combined subranges (first ranges, as the harness
+            # only handles the single-interval case; multiple intervals are
+            # rare and each is chained here for robustness)
+            for (s1, e1), (s2, e2) in zip(c1, c2):
+                if chain_fn is not None:
+                    hits = chain_fn(seq1[s1:e1], seq2[s2:e2])
+                else:
+                    hits = chain_align(seq1[s1:e1], seq2[s2:e2], cfg,
+                                       aligner)
+                jc1.extend((s1 + h.query_start, s1 + h.query_end)
+                           for h in hits)
+                jc2.extend((s2 + h.ref_start, s2 + h.ref_end) for h in hits)
+        jcsum = coverage_sum(jc1) + coverage_sum(jc2)
+        if jcsum == 0:
+            return "miss"
+        if 50.0 * jcsum / alen < 100 - freeroom - error:
+            return "partial"
+        return "hit"

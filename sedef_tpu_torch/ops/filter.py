@@ -14,10 +14,9 @@ many windows on device later (qgram histograms are a natural segment-sum).
 
 from __future__ import annotations
 
-import threading
-
 import numpy as np
 
+from .. import trace
 from ..config import DEFAULT, Config
 from .dna import CLS_UPPER, PackedSeq
 
@@ -26,42 +25,10 @@ QSZ = 1 << (2 * QG)
 _MASK = QSZ - 1
 
 
-class _Counters:
-    """Thread-safe funnel counters (the ``-j`` fan-out increments these
-    from pool threads).  Dict-like reads; writes go through ``add``."""
-
-    _KEYS = ("total", "jaccard", "interval", "lowercase", "qgram")
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._c = {k: 0 for k in self._KEYS}
-
-    def add(self, key: str, n: int = 1) -> None:
-        with self._lock:
-            self._c[key] += n
-
-    def reset(self) -> None:
-        with self._lock:
-            for k in self._c:
-                self._c[k] = 0
-
-    def __getitem__(self, key: str) -> int:
-        with self._lock:
-            return self._c[key]
-
-    def keys(self):
-        return self._c.keys()
-
-    def __iter__(self):
-        return iter(self._KEYS)
-
-    def snapshot(self) -> dict[str, int]:
-        with self._lock:
-            return dict(self._c)
-
-
-# funnel counters (search_main.cc:186-193 report)
-COUNTERS = _Counters()
+# funnel counters (search_main.cc:186-193 report); the ``-j`` fan-out adds
+# to them from pool threads
+COUNTERS = trace.Counters("funnel", ("total", "jaccard", "interval",
+                                     "lowercase", "qgram"))
 
 
 def min_qgram(l: int, q: int, cfg: Config = DEFAULT) -> int:

@@ -68,11 +68,10 @@ jit programs; the per-interval kernel runs their row code
 
 from __future__ import annotations
 
-import threading
-
 import numpy as np
 import torch
 
+from .. import trace
 from .jaccard_batch import merge_rank_intersection
 from .wavefront import (_check, _kernels, _launch, _ptr, _pull, _same_device,
                         _upload)
@@ -90,18 +89,15 @@ SPAN_BATCH = 32768
 # loci of a span the per-interval kernel stages in shared memory at a time
 INTERVAL_TILE = 1024
 
-# what the last collected prefilters did, summed until reset (read by
-# chip_smoke.py): intervals, pruned in phase A and in phase B, composition
-# rows, and the device ms of each dispatch's queued work, from before its
-# upload to after its pull (CUDA events)
-STATS = dict(intervals=0, pruned_a=0, pruned_b=0, rows=0, device_ms=0.0)
-_STATS_LOCK = threading.Lock()
+# what the collected prefilters did, summed until reset (read by
+# chip_smoke.py and entry.py): intervals, pruned in phase A and in phase B,
+# composition rows
+STATS = trace.Counters("prefilter",
+                       ("intervals", "pruned_a", "pruned_b", "rows"))
 
 
 def reset_stats() -> None:
-    with _STATS_LOCK:
-        for key in STATS:
-            STATS[key] = 0.0 if key == "device_ms" else 0
+    STATS.reset()
 
 
 def _iota(n: int, device) -> torch.Tensor:
@@ -396,30 +392,27 @@ class PendingPrefilter:
     chromosome pair's device work while it plans or searches the next
     (models/pipeline.py search_job's two-phase loop)."""
 
-    def __init__(self, n, bj, bs, ok, rec=None, start=None, done=None):
+    def __init__(self, n, bj, bs, ok, rec=None, done=None):
         self._n = n
         self._bj, self._bs, self._ok = bj, bs, ok
-        self._rec, self._start, self._done = rec, start, done
+        self._rec, self._done = rec, done
 
     def collect(self):
         """Wait for the records; returns (best_j, best_steps, ok)."""
         if self._rec is None:
             return self._bj, self._bs, self._ok
-        ms = 0.0
         if self._done is not None:
-            self._done.synchronize()
-            ms = self._start.elapsed_time(self._done)
+            with trace.span("seed.wait"):
+                self._done.synchronize()
         rec = self._rec.numpy()
         self._rec = None
         verdict = rec[:, 0] > 0
         self._bj[verdict] = -1
         self._ok[:] = verdict
-        with _STATS_LOCK:
-            STATS["intervals"] += self._n
-            STATS["pruned_a"] += int((rec[:, 0] == 1).sum())
-            STATS["pruned_b"] += int((rec[:, 0] == 2).sum())
-            STATS["rows"] += int(rec[:, 1].sum(dtype=np.int64))
-            STATS["device_ms"] += ms
+        STATS.update({"intervals": self._n,
+                      "pruned_a": int((rec[:, 0] == 1).sum()),
+                      "pruned_b": int((rec[:, 0] == 2).sum()),
+                      "rows": int(rec[:, 1].sum(dtype=np.int64))})
         return self._bj, self._bs, self._ok
 
 
@@ -467,14 +460,9 @@ class RollPrefilter:
         if ((cols < 0).any() or int(cols[2].max() + cols[4].max())
                 + self.L >= 2**31 or int(cols[3].max()) > r_locs.shape[0]):
             raise ValueError("plan columns out of the int32 plan's range")
-        dev = self.device
-        start = done = None
-        if dev.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            start.record(torch.cuda.current_stream(dev))
-        plan = _upload(cols, dev)
+        plan = _upload(cols, self.device)
         rec = _interval_verdicts(q_keys, r_keys, r_locs, self.limit_lut,
                                  plan, L=self.L, SQ=self.SQ, RW=self.RW,
                                  SA=self.SA, n_shift=self.n_shift)
         rec, done = _pull(rec)
-        return PendingPrefilter(n, bj, bs, ok, rec, start, done)
+        return PendingPrefilter(n, bj, bs, ok, rec, done)

@@ -44,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from .wavefront import (_check, _kernels, _launch, _pull, _same_device,
                         _upload)
 
@@ -400,7 +401,8 @@ class RollEngine:
                     steps_max=int(plan[5, order[0]]), out=out)
         host, done = _pull(rec)
         if done is not None:
-            done.synchronize()
+            with trace.span("seed.wait"):
+                done.synchronize()
         host = host.numpy()
         best_j[order] = host[:4 * m].view(np.int32)
         best_steps[order] = host[4 * m:8 * m].view(np.int32)

@@ -54,6 +54,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import DEFAULT, Config
 from .dna import WILDCARD, encode_align
 
@@ -597,7 +598,7 @@ def _pull(t: torch.Tensor):
         return t, None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
-    done = torch.cuda.Event(enable_timing=True)
+    done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(t.device))
     return host, done
 
@@ -1471,6 +1472,24 @@ def cigar_from_ops(ops_row: np.ndarray, qlen: int, tlen: int,
 
 
 SIZE_CLASSES = (128, 256, 512, 1024, 2048)
+# the launch groups' routes
+ROUTES = ("direct", "streamed", "tiled", "streamed-tiled")
+
+
+def _route(K: int, tile: int | None) -> str:
+    """A launch group's route: streamed when K > 1, tiled with a tile."""
+    return ROUTES[(K > 1) + 2 * (tile is not None)]
+
+
+# the gap-DP router's counts, each added once an ``align_batch`` call:
+# problems and cells (ql x tl, as ``device_cells`` counts them, without
+# the padding problems of whole streams) by route, and launch groups by
+# route
+GAPDP = trace.Counters("gapdp", (
+    "problems.degenerate", "problems.host", "problems.card", "cells.host",
+    "cells.card", *(f"groups.{r}" for r in ROUTES)))
+# rounds the coalescing aligners dispatched
+COALESCE = trace.Counters("coalesce", ("rounds",))
 # the aligner's uncalibrated batch floors (problems, DP cells)
 FROZEN_BATCH_MIN = 8
 FROZEN_BATCH_MIN_CELLS = 1 << 21
@@ -1523,7 +1542,8 @@ class WavefrontAligner:
         self.device_problems = 0
         self.device_cells = 0
         self.device_batches = 0
-        # problems of every launch group, by (route, S_q, S_t)
+        # launch groups by (route, S_q, S_t): [groups, problems summed,
+        # the most problems in one group]
         self.launch_groups: dict[tuple[str, int, int], list[int]] = {}
 
     def align_codes(self, query: np.ndarray, target: np.ndarray
@@ -1601,26 +1621,46 @@ class WavefrontAligner:
             if bulk_cells >= self.DEVICE_BATCH_MIN_CELLS:
                 device_idx += native_idx
                 native_idx = []
-        if native_idx and native.has("align_batch"):
+        groups = dict.fromkeys(ROUTES, 0)
+        if native_idx:
+            with trace.span("gapdp.host"):
+                self._align_native(native, pairs, native_idx, results)
+        if device_idx:
+            with trace.span("gapdp.card"):
+                self._align_device(pairs, device_idx, results, groups)
+        GAPDP.update({
+            "problems.degenerate": len(pairs) - len(native_idx)
+            - len(device_idx),
+            "problems.host": len(native_idx),
+            "problems.card": len(device_idx),
+            "cells.host": sum(len(pairs[i][0]) * len(pairs[i][1])
+                              for i in native_idx),
+            "cells.card": sum(len(pairs[i][0]) * len(pairs[i][1])
+                              for i in device_idx),
+            **{f"groups.{r}": n for r, n in groups.items()}})
+        return results
+
+    def _align_native(self, native, pairs, idxs: list[int], results) -> None:
+        """The native scalar DP on the host."""
+        if native.has("align_batch"):
             # one ctypes round trip for the whole small-DP set
             sub = [(pairs[i][0].astype(np.uint8),
-                    pairs[i][1].astype(np.uint8)) for i in native_idx]
-            for i, cig in zip(native_idx, native.align_batch(
+                    pairs[i][1].astype(np.uint8)) for i in idxs]
+            for i, cig in zip(idxs, native.align_batch(
                     sub, self.match, self.mis, self.gapo, self.gape)):
                 results[i] = cig
         else:
-            for idx in native_idx:
+            for idx in idxs:
                 qc, tc = pairs[idx]
                 results[idx] = native.align(
                     qc.astype(np.uint8), tc.astype(np.uint8),
                     self.match, self.mis, self.gapo, self.gape)
-        if device_idx:
-            self._align_device(pairs, device_idx, results)
-        return results
 
-    def _align_device(self, pairs, idxs: list[int], results) -> None:
+    def _align_device(self, pairs, idxs: list[int], results,
+                      routes: dict[str, int]) -> None:
         """Fill + traceback on ``self.device``, grouped per (S_q, S_t) size
-        class, each class on its route (see GIANT_S_T above)."""
+        class, each class on its route (see GIANT_S_T above); ``routes``
+        counts the launch groups by route."""
         groups: dict[tuple[int, int], list[int]] = {}
         for idx in idxs:
             qc, tc = pairs[idx]
@@ -1643,11 +1683,13 @@ class WavefrontAligner:
                 parts = [(g[o:o + cap], 1, None)
                          for o in range(0, len(g), cap)]
             for part, K, tile in parts:
+                routes[_route(K, tile)] += 1
                 ops = self._solve(pairs, part, S_q, S_t, K, tile)
-                for bi, idx in enumerate(part):
-                    qc, tc = pairs[idx]
-                    results[idx] = cigar_from_packed_ops(ops[bi], len(qc),
-                                                         len(tc))
+                with trace.span("gapdp.card.decode"):
+                    for bi, idx in enumerate(part):
+                        qc, tc = pairs[idx]
+                        results[idx] = cigar_from_packed_ops(
+                            ops[bi], len(qc), len(tc))
 
     def stream_k(self, n: int) -> int:
         """Problems per stream for a streamed class of n problems."""
@@ -1679,23 +1721,25 @@ class WavefrontAligner:
         traceback.  Otherwise the tiled route, streamed when K > 1.  The
         batch is padded to whole streams with ql = tl = 1 problems."""
         B = -(-len(part) // K) * K
-        qseq = np.full((B, S_q), WILDCARD, dtype=np.int8)
-        tgts = np.full((B, S_t), WILDCARD, dtype=np.int8)
-        ql = np.ones(B, np.int32)
-        tl = np.ones(B, np.int32)
-        for bi, idx in enumerate(part):
-            qc, tc = pairs[idx]
-            qseq[bi, :len(qc)] = qc
-            tgts[bi, :len(tc)] = tc
-            ql[bi] = len(qc)
-            tl[bi] = len(tc)
+        with trace.span("gapdp.card.pack"):
+            qseq = np.full((B, S_q), WILDCARD, dtype=np.int8)
+            tgts = np.full((B, S_t), WILDCARD, dtype=np.int8)
+            ql = np.ones(B, np.int32)
+            tl = np.ones(B, np.int32)
+            for bi, idx in enumerate(part):
+                qc, tc = pairs[idx]
+                qseq[bi, :len(qc)] = qc
+                tgts[bi, :len(tc)] = tc
+                ql[bi] = len(qc)
+                tl[bi] = len(tc)
         dev = self.device
         sc = (self.match, self.mis, self.gapo, self.gape)
         with self._lock:
-            q = torch.from_numpy(qseq).to(dev)
-            t = torch.from_numpy(tgts).to(dev)
-            qlt = torch.from_numpy(ql).to(dev)
-            tlt = torch.from_numpy(tl).to(dev)
+            with trace.span("gapdp.card.upload"):
+                q = torch.from_numpy(qseq).to(dev)
+                t = torch.from_numpy(tgts).to(dev)
+                qlt = torch.from_numpy(ql).to(dev)
+                tlt = torch.from_numpy(tl).to(dev)
             if tile is None:
                 if K == 1:
                     p = wavefront_fill(q, t, *sc)
@@ -1705,14 +1749,17 @@ class WavefrontAligner:
                 del p
             else:
                 packed = self._solve_tiled(q, t, qlt, tlt, K, tile, sc)
-            ops = packed.cpu().numpy()
+            with trace.span("gapdp.card.wait"):
+                packed = packed.cpu()
+            ops = packed.numpy()
             self.device_problems += len(part)
             self.device_cells += int((ql.astype(np.int64) * tl).sum())
             self.device_batches += 1
-            route = (("direct", "streamed") if tile is None
-                     else ("tiled", "streamed-tiled"))[K > 1]
-            self.launch_groups.setdefault((route, S_q, S_t),
-                                          []).append(len(part))
+            g = self.launch_groups.setdefault((_route(K, tile), S_q, S_t),
+                                              [0, 0, 0])
+            g[0] += 1
+            g[1] += len(part)
+            g[2] = max(g[2], len(part))
         return ops
 
     @staticmethod
@@ -1801,19 +1848,23 @@ class CoalescingAligner:
         req = [pairs, None]
         with self._cv:
             self._pending.append(req)
-            while req[1] is None and self._dispatching:
-                self._cv.wait()
+            if self._dispatching:
+                with trace.span("coalesce.wait"):
+                    while req[1] is None and self._dispatching:
+                        self._cv.wait()
             if req[1] is not None:
                 return req[1]
             self._dispatching = True
         try:
             while req[1] is None:
-                _time.sleep(self.window_s)
+                with trace.span("coalesce.wait"):
+                    _time.sleep(self.window_s)
                 with self._cv:
                     batch = self._pending
                     self._pending = []
                 if not batch:
                     break
+                COALESCE.add("rounds")
                 union = [p for r in batch for p in r[0]]
                 results = self.base.align_batch(union)
                 with self._cv:
