@@ -1433,42 +1433,59 @@ for _w in KERNEL_WRAPPERS:
 def cigar_from_packed_ops(packed_row: np.ndarray, qlen: int, tlen: int
                           ) -> list[tuple[str, int]]:
     """Decode one problem's 2-bit op stream into a CIGAR."""
-    b = packed_row
-    ops = np.empty(4 * len(b), np.uint8)
-    ops[0::4] = b & 3
-    ops[1::4] = (b >> 2) & 3
-    ops[2::4] = (b >> 4) & 3
-    ops[3::4] = (b >> 6) & 3
-    return cigar_from_ops(ops, qlen, tlen, skip=3)
+    return cigars_from_packed(np.asarray(packed_row)[None], [qlen],
+                              [tlen])[0]
 
 
-def cigar_from_ops(ops_row: np.ndarray, qlen: int, tlen: int,
-                   skip: int = 255) -> list[tuple[str, int]]:
-    """Decode one walker's op bytes (per anti-diagonal, ``skip`` = row not
-    consumed) into a CIGAR, mirroring ``backtrack_np``'s residual
-    handling."""
-    n_diag = qlen + tlen - 1
-    seq = ops_row[:n_diag][::-1]
-    seq = seq[seq != skip]
-    nM = int((seq == 0).sum())
-    nI = int((seq == 1).sum())
-    nD = int((seq == 2).sum())
-    i_end = tlen - 1 - nM - nI
-    j_end = qlen - 1 - nM - nD
-    parts = seq.tolist()
-    if i_end >= 0:
-        parts.extend([1] * (i_end + 1))
-    if j_end >= 0:
-        parts.extend([2] * (j_end + 1))
-    cigar: list[tuple[str, int]] = []
-    for opc in parts:
-        opch = "MID"[opc]
-        if cigar and cigar[-1][0] == opch:
-            cigar[-1] = (opch, cigar[-1][1] + 1)
-        else:
-            cigar.append((opch, 1))
-    cigar.reverse()
-    return cigar
+_OP_NAMES = ("M", "I", "D")
+# a byte's four 2-bit codes, low bits first
+_UNPACK = (np.arange(256, dtype=np.uint8)[:, None]
+           >> np.array([0, 2, 4, 6], np.uint8)) & 3
+
+
+def cigars_from_packed(ops: np.ndarray, ql, tl
+                       ) -> list[list[tuple[str, int]]]:
+    """Decode a launch group's packed ops (B, ceil(n_diag / 4)) uint8 and
+    its (B,) lengths into B CIGARs, in one pass of array operations.
+
+    Code r of a row (byte r / 4, bits 2 * (r % 4)) is the walker's move on
+    anti-diagonal r: 0 M, 1 I, 2 D, 3 none; codes at r >= ql + tl - 1 are
+    never read.  The walker leaves ``ql - nM - nD`` D and ``tl - nM - nI``
+    I on an edge (each when positive), which start the alignment in that
+    order: ``backtrack_np``'s residual handling.  Adds the runs emitted to
+    the ``gapdp`` counter ``decode.runs``."""
+    ops = np.asarray(ops, np.uint8)
+    B, n_bytes = ops.shape
+    ql = np.asarray(ql, np.int64)
+    tl = np.asarray(tl, np.int64)
+    # each row: its D residual (column 0), its I residual (1), its moves
+    W = 4 * n_bytes + 2
+    codes = np.empty((B, W), np.uint8)
+    codes[:, 0] = 2
+    codes[:, 1] = 1
+    codes[:, 2:] = _UNPACK.take(ops, axis=0).reshape(B, W - 2)
+    keep = codes != 3
+    keep[:, 2:] &= np.arange(W - 2) < (ql + tl - 1)[:, None]
+    at = np.flatnonzero(keep)
+    rows = at // W
+    cols = at - rows * W
+    vals = codes.ravel().take(at)
+    # M, I and D a row, each I and D one more for the residual entries
+    n = np.bincount(rows * 3 + vals, minlength=3 * B).reshape(B, 3)
+    weight = np.ones(len(at), np.int64)
+    weight[cols == 0] = np.maximum(ql - n[:, 0] - n[:, 2] + 1, 0)
+    weight[cols == 1] = np.maximum(tl - n[:, 0] - n[:, 1] + 1, 0)
+    live = weight > 0
+    vals, rows, weight = vals[live], rows[live], weight[live]
+    # a run starts where the op or the problem changes
+    start = np.ones(len(vals), bool)
+    start[1:] = (vals[1:] != vals[:-1]) | (rows[1:] != rows[:-1])
+    first = np.flatnonzero(start)
+    bounds = np.searchsorted(rows[first], np.arange(B + 1)).tolist()
+    runs = list(zip(map(_OP_NAMES.__getitem__, vals[first].tolist()),
+                    np.add.reduceat(weight, first).tolist()))
+    GAPDP.add("decode.runs", len(runs))
+    return [runs[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
 
 
 SIZE_CLASSES = (128, 256, 512, 1024, 2048)
@@ -1484,10 +1501,11 @@ def _route(K: int, tile: int | None) -> str:
 # the gap-DP router's counts, each added once an ``align_batch`` call:
 # problems and cells (ql x tl, as ``device_cells`` counts them, without
 # the padding problems of whole streams) by route, and launch groups by
-# route
+# route; and the CIGAR runs ``cigars_from_packed`` emitted, added once a
+# call
 GAPDP = trace.Counters("gapdp", (
     "problems.degenerate", "problems.host", "problems.card", "cells.host",
-    "cells.card", *(f"groups.{r}" for r in ROUTES)))
+    "cells.card", *(f"groups.{r}" for r in ROUTES), "decode.runs"))
 # rounds the coalescing aligners dispatched
 COALESCE = trace.Counters("coalesce", ("rounds",))
 # the aligner's uncalibrated batch floors (problems, DP cells)
@@ -1686,10 +1704,11 @@ class WavefrontAligner:
                 routes[_route(K, tile)] += 1
                 ops = self._solve(pairs, part, S_q, S_t, K, tile)
                 with trace.span("gapdp.card.decode"):
-                    for bi, idx in enumerate(part):
-                        qc, tc = pairs[idx]
-                        results[idx] = cigar_from_packed_ops(
-                            ops[bi], len(qc), len(tc))
+                    for idx, cig in zip(part, cigars_from_packed(
+                            ops[:len(part)],
+                            [len(pairs[i][0]) for i in part],
+                            [len(pairs[i][1]) for i in part])):
+                        results[idx] = cig
 
     def stream_k(self, n: int) -> int:
         """Problems per stream for a streamed class of n problems."""

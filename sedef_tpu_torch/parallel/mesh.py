@@ -274,10 +274,10 @@ class MeshAligner:
             al = self.aligners[d]
             for part, S_q, S_t in work[d]:
                 ops = al._solve(pairs, part, S_q, S_t, 1, None)
-                for bi, idx in enumerate(part):
-                    qc, tc = pairs[idx]
-                    results[idx] = wf.cigar_from_packed_ops(
-                        ops[bi], len(qc), len(tc))
+                for idx, cig in zip(part, wf.cigars_from_packed(
+                        ops, [len(pairs[i][0]) for i in part],
+                        [len(pairs[i][1]) for i in part])):
+                    results[idx] = cig
 
         def run(d: int) -> None:
             if self._streams[d] is None:

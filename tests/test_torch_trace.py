@@ -294,6 +294,28 @@ def test_gapdp_counters_by_route():
                    for s in spans[name]), name
 
 
+def test_decode_runs_count_the_card_cigars_runs():
+    """``decode.runs`` adds the runs of every CIGAR the card route
+    decoded, and ``gapdp.card.decode`` is one span a launch group under
+    ``gapdp.card``."""
+    pairs, _ = _problems()
+    al = wf.WavefrontAligner(device="cpu")
+    al.DEVICE_BATCH_MIN = 1
+    al.DEVICE_BATCH_MIN_CELLS = 0
+    trace.enable()
+    got = al.align_batch(pairs)
+    trace.disable()
+    snap = trace.snapshot()
+    card = [cig for (q, t), cig in zip(pairs, got) if len(q) and len(t)]
+    c = snap["counters"]["gapdp"]
+    assert c["decode.runs"] == sum(len(cig) for cig in card) > len(card)
+    spans = _by_name(snap)
+    assert len(spans["gapdp.card"]) == 1
+    assert len(spans["gapdp.card.decode"]) == al.device_batches == 2
+    assert all(s["parent"] == spans["gapdp.card"][0]["id"]
+               for s in spans["gapdp.card.decode"])
+
+
 def test_launch_groups_hold_three_numbers_a_class():
     """``launch_groups`` keeps per (route, S_q, S_t) the groups, the
     problems summed and the most problems in one group, however many

@@ -73,6 +73,90 @@ def test_traceback_cigars_match_backtrack_np(S_q, S_t):
                 == ref_wf.backtrack_np(p_ref, len(q), len(t))), b
 
 
+def _pack_codes(codes):
+    """(B, 4n) 2-bit codes -> (B, n) bytes, low bits first."""
+    c = codes.astype(np.uint8)
+    return c[:, 0::4] | c[:, 1::4] << 2 | c[:, 2::4] << 4 | c[:, 3::4] << 6
+
+
+def _stream_row(rng, ql, tl, d_res, i_res, first=None):
+    """One problem's codes over its ql + tl - 1 anti-diagonals: moves that
+    leave d_res D and i_res I on the edge (negative: that many too many),
+    first move ``first`` when given, the other rows 3."""
+    n_m = max(min(ql - max(d_res, 0), tl - max(i_res, 0)) // 2, 0)
+    n_d = max(ql - d_res - n_m, 0)
+    n_i = max(tl - i_res - n_m, 0)
+    moves = rng.permutation(np.repeat([0, 1, 2], [n_m, n_i, n_d]))
+    if first is not None:
+        moves = np.concatenate([[first], moves])
+    n_diag = ql + tl - 1
+    moves = moves[:n_diag]
+    row = np.full(n_diag, 3, np.uint8)
+    row[np.sort(rng.choice(n_diag, len(moves), replace=False))] = moves
+    return row
+
+
+def _decode_case(kind, S, B, rng):
+    """(packed ops, ql, tl) of B problems in the (S, S) class: rows of
+    ``kind``, codes 0-3 (mostly not 3) past every row's n_diag."""
+    width = 4 * ((2 * S - 1 + 3) // 4)
+    codes = rng.integers(0, 3, (B, width)).astype(np.uint8)
+    ql = rng.integers(1, S + 1, B)
+    tl = rng.integers(1, S + 1, B)
+    if kind == "len1":
+        ql[::2] = 1
+        tl[1::2] = 1
+        tl[::3] = 1
+    for b in range(B):
+        n_diag = ql[b] + tl[b] - 1
+        if kind == "random":
+            codes[b, :n_diag] = rng.integers(0, 4, n_diag)
+        elif kind == "all3":
+            codes[b, :n_diag] = 3
+        elif kind in ("residuals", "len1"):
+            d, i = rng.integers(-2, 3, 2) * rng.integers(0, 4, 2)
+            codes[b, :n_diag] = _stream_row(rng, int(ql[b]), int(tl[b]),
+                                            int(d), int(i))
+        elif kind == "merge":
+            # an I residual ahead of a first I, or a D residual alone ahead
+            # of a first D
+            i_res = int(rng.integers(0, 2) * rng.integers(1, 4))
+            codes[b, :n_diag] = _stream_row(rng, int(ql[b]), int(tl[b]),
+                                            int(rng.integers(0, 4)), i_res,
+                                            first=1 if i_res else 2)
+    return _pack_codes(codes), ql, tl
+
+
+@pytest.mark.parametrize("kind,S,B", [
+    (kind, S, B) for kind in ("random", "residuals", "merge", "all3", "len1")
+    for S, B in ((128, 300), (256, 1), (512, 300), (1024, 1), (2048, 24))]
+    + [("walker", 128, 300), ("walker", 256, 1)])
+def test_group_decode_matches_reference_decode(kind, S, B):
+    """``cigars_from_packed`` over a whole group gives, tuple for tuple,
+    the reference package's one-row ``cigar_from_packed_ops`` of every
+    row (``walker``: ``backtrack_pack``'s output on the CPU tensor path,
+    also ``backtrack_np``'s CIGARs)."""
+    rng = np.random.default_rng(S * 10 + B + len(kind))
+    if kind == "walker":
+        qs, ts, ql, tl, probs = _random_batch(rng, S, S, B)
+        packed = wf.backtrack_pack(
+            wf.wavefront_fill(torch.from_numpy(qs), torch.from_numpy(ts)),
+            torch.from_numpy(ql), torch.from_numpy(tl)).numpy()
+    else:
+        packed, ql, tl = _decode_case(kind, S, B, rng)
+    got = wf.cigars_from_packed(packed, ql, tl)
+    assert len(got) == B
+    for b in range(B):
+        want = ref_wf.cigar_from_packed_ops(packed[b], int(ql[b]), int(tl[b]))
+        assert got[b] == want, b
+        assert wf.cigar_from_packed_ops(packed[b], int(ql[b]),
+                                        int(tl[b])) == want, b
+        if kind == "walker":
+            q, t = probs[b]
+            assert want == ref_wf.backtrack_np(ref_wf.wavefront_np(q, t)[0],
+                                               len(q), len(t)), b
+
+
 def test_packed_ops_match_pallas_interpret():
     """Byte-identical packed ops against the reference package's fused
     Pallas fill + traceback, run in interpret mode as its own tests do."""
