@@ -6,7 +6,8 @@ The window ends with the last genome started before its seconds have
 elapsed; the rate divides the bases of the genomes it finished by the whole
 elapsed time.  Genomes drawn from the seed as the window runs (reservoir
 sampling over the finished ones) keep the gap DPs they asked for; the check
-judges those genomes' rows and gap DPs with the plain reference.
+judges those genomes' rows and gap DPs with the plain reference, and the
+coverage of the planted SDs over every genome the window finished.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ class Driver:
         self.workdir = workdir
         self.device = device
         self.kept: list[tuple[int, list]] = []  # (pool index, gap DPs)
+        self.done: list[int] = []  # pool indices the window finished
 
     def setup(self) -> None:
         from sedef_tpu_torch import devcal
@@ -96,6 +98,7 @@ class Driver:
                 failed += 1
                 continue
             done += 1
+            self.done.append(k)
             bases += g["bases"]
             if len(self.kept) < keep:
                 self.kept.append((k, dps))
@@ -120,29 +123,31 @@ class Driver:
     def check(self) -> list[dict]:
         """The kept genomes judged by the plain reference: their gap DPs,
         every aligned and final row (an alignment of its bases with the
-        tallies and statistics it prints; a final row within the filters),
-        and how much of the planted SDs the seeds and the final rows
-        cover."""
+        tallies and statistics it prints; a final row within the filters);
+        and how much of the planted SDs the seeds and the final rows of
+        every finished genome cover."""
         limits = self.config["checks"]
         judged, bad_dp = judge([dps for _, dps in self.kept], self.seed,
                                self.traffic["check_dps"],
                                self.config["scores"])
         bad_aligned = bad_final = 0
-        covered = {"seeds": 0, "final": 0}
-        total = 0
         for k, _ in sorted(self.kept):
             g = self.pool[k]
             genome = rows.read_fasta(g["fasta"])
             out = os.path.join(os.path.dirname(g["fasta"]), "out_run")
             bad_aligned += sum(rows.aligned_row_faults(ln, genome) for ln in
                                _rows(os.path.join(out, "aligned.bed")))
-            final = _rows(os.path.join(out, "final.bed"))
             bad_final += sum(rows.final_row_faults(
-                ln, genome, self.config["filters"]) for ln in final)
-            for name, rs in (("seeds",
-                              _rows(os.path.join(out, "seeds.bed"))),
-                             ("final", final)):
-                c, total_g = cover.planted_coverage(rs, g["planted"])
+                ln, genome, self.config["filters"])
+                for ln in _rows(os.path.join(out, "final.bed")))
+        covered = {"seeds": 0, "final": 0}
+        total = 0
+        for k in self.done:
+            g = self.pool[k]
+            out = os.path.join(os.path.dirname(g["fasta"]), "out_run")
+            for name in covered:
+                c, total_g = cover.planted_coverage(
+                    _rows(os.path.join(out, f"{name}.bed")), g["planted"])
                 covered[name] += c
             total += total_g
         miss = {n: 100.0 * (1 - c / total) if total else 100.0

@@ -42,8 +42,11 @@ def _rand_codes(rng, n):
     return rng.integers(0, 4, n, dtype=np.int8)
 
 
-def _mutate_codes(rng, codes: np.ndarray, rate: float) -> np.ndarray:
-    """SNPs (2/3 of errors) + 1 bp indels (1/3)."""
+def _mutate_codes(rng, codes: np.ndarray, rate: float,
+                  deleted: list | None = None) -> np.ndarray:
+    """SNPs (2/3 of errors) + 1 bp indels (1/3).  ``deleted``, if given,
+    gets the sorted offsets the copy lost (the inserted bases go at its
+    end)."""
     n = len(codes)
     snp = rng.random(n) < rate * 2 / 3
     out = codes.copy()
@@ -53,11 +56,15 @@ def _mutate_codes(rng, codes: np.ndarray, rate: float) -> np.ndarray:
         keep = np.ones(n, dtype=bool)
         dels = indel[rng.random(len(indel)) < 0.5]
         keep[dels] = False
+        if deleted is not None:
+            deleted.append(dels)
         pieces = [out[keep]]
         ins = indel[rng.random(len(indel)) < 0.5]
         if len(ins):
             pieces.append(_rand_codes(rng, len(ins)))
         out = np.concatenate(pieces)
+    if deleted is not None and not len(indel):
+        deleted.append(indel)
     return out
 
 
@@ -72,11 +79,16 @@ def simulate_genome(length: int = 5_000_000, n_sds: int = 20,
                     n_run_every: int = 0,
                     repeat_families: int = 0, repeat_copies: int = 0,
                     repeat_len: tuple[int, int] = (400, 2500),
-                    repeat_div: tuple[float, float] = (0.08, 0.40)
+                    repeat_div: tuple[float, float] = (0.08, 0.40),
+                    sd_specs: list[tuple[int, float, bool]] | None = None,
+                    deleted: list | None = None
                     ) -> tuple[dict[str, str], list[PlantedSD]]:
     """Returns ({chrom_name: sequence}, planted SD list): lowercase random
     background, uppercase SD copies and repeat-family copies at random
-    non-overlapping places (see the port's ``genome_sim``)."""
+    non-overlapping places (see the port's ``genome_sim``).  ``sd_specs``
+    gives each SD's (length, divergence, reverse) in place of its three
+    draws; without it the draws are the original's.  ``deleted``, if given,
+    gets each planted SD's offsets its second copy lost."""
     rng = np.random.default_rng(seed)
     per_chrom = length // n_chroms
     buf = {}
@@ -102,17 +114,23 @@ def simulate_genome(length: int = 5_000_000, n_sds: int = 20,
         return None
 
     for si in range(n_sds):
-        ln = int(rng.integers(sd_min, sd_max))
-        div = float(rng.uniform(0.0, max_divergence))
-        is_rc = bool(rng.random() < rc_fraction)
+        if sd_specs is None:
+            ln = int(rng.integers(sd_min, sd_max))
+            div = float(rng.uniform(0.0, max_divergence))
+            is_rc = bool(rng.random() < rc_fraction)
+        else:
+            ln, div, is_rc = sd_specs[si]
         ca = names[int(rng.integers(0, len(names)))]
         cb = names[int(rng.integers(0, len(names)))]
         codes = _rand_codes(rng, ln)
-        copy_codes = _mutate_codes(rng, codes, div)
+        lost = []
+        copy_codes = _mutate_codes(rng, codes, div, lost)
         sa = place(ca, ln)
         sb = place(cb, len(copy_codes))
         if sa is None or sb is None:
             continue
+        if deleted is not None:
+            deleted.append(lost[0])
         buf[ca][sa:sa + ln] = _to_str(codes, upper=True)
         b_str = _to_str(copy_codes, upper=True)
         if is_rc:
@@ -150,27 +168,48 @@ def simulate_genome(length: int = 5_000_000, n_sds: int = 20,
 
 
 def mosaic(chroms: dict[str, str], planted: list[PlantedSD], rng,
-           cores: tuple, keeps: tuple) -> dict[str, str]:
+           cores: tuple, keeps: tuple, deleted: list
+           ) -> tuple[dict[str, str], list[PlantedSD]]:
     """Re-randomise cores of every forward SD in both copies (diverged
     duplicon blocks between conserved ones): SD i takes cores[i % 2] and
-    keeps[i % 2], each a (low, high) length range."""
+    keeps[i % 2], each a (low, high) length range of its first copy, and
+    the second copy's core lies at the homologous place (the offsets shifted
+    by the bases the copy lost before them, ``deleted[i]``).  Returns the
+    genome and the conserved blocks, each a pair of homologous intervals
+    (the last one to the end of the first copy and of its homologue)."""
     bufs = {n: bytearray(s, "ascii") for n, s in chroms.items()}
+    blocks = []
     for si, sd in enumerate(planted):
         if sd.is_rc:
             continue
+
+        def on_b(x, lost=deleted[si]):
+            return x - int(np.searchsorted(lost, x))
         core, keep = cores[si % 2], keeps[si % 2]
-        span = min(sd.a_end - sd.a_start, sd.b_end - sd.b_start)
+        span = sd.a_end - sd.a_start
+        kept = 0
         pos = int(rng.integers(*keep))
         while True:
             ln = int(rng.integers(*core))
             if pos + ln + keep[1] > span:
                 break
-            for name, st in ((sd.chrom_a, sd.a_start),
-                             (sd.chrom_b, sd.b_start)):
-                bufs[name][st + pos:st + pos + ln] = \
-                    _UP[rng.integers(0, 4, ln)].tobytes()
+            blocks.append(PlantedSD(sd.chrom_a, sd.a_start + kept,
+                                    sd.a_start + pos, sd.chrom_b,
+                                    sd.b_start + on_b(kept),
+                                    sd.b_start + on_b(pos),
+                                    False, sd.divergence))
+            for name, st, lo, hi in (
+                    (sd.chrom_a, sd.a_start, pos, pos + ln),
+                    (sd.chrom_b, sd.b_start, on_b(pos), on_b(pos + ln))):
+                bufs[name][st + lo:st + hi] = \
+                    _UP[rng.integers(0, 4, hi - lo)].tobytes()
+            kept = pos + ln
             pos += ln + int(rng.integers(*keep))
-    return {n: b.decode() for n, b in bufs.items()}
+        blocks.append(PlantedSD(sd.chrom_a, sd.a_start + kept, sd.a_end,
+                                sd.chrom_b, sd.b_start + on_b(kept),
+                                sd.b_start + on_b(span), False,
+                                sd.divergence))
+    return {n: b.decode() for n, b in bufs.items()}, blocks
 
 
 def write_fasta(path: str, chroms: dict[str, str], width: int = 80) -> None:
@@ -194,11 +233,28 @@ def entropy(seed: int, *sub: int) -> np.random.SeedSequence:
     return np.random.SeedSequence([seed % (1 << 64), *sub])
 
 
+def sd_specs(recipe: dict, sizes_seed: int, stream: int, k: int
+             ) -> list[tuple[int, float, bool]]:
+    """Genome k's SD (length, divergence, reverse) triples, drawn as the
+    recipe draws them but from (sizes_seed, stream, k): the same for every
+    run's seed."""
+    rng = np.random.default_rng(entropy(sizes_seed, stream, k))
+    return [(int(rng.integers(recipe["sd_min"], recipe["sd_max"])),
+             float(rng.uniform(0.0, recipe["max_divergence"])),
+             bool(rng.random() < recipe["rc_fraction"]))
+            for _ in range(recipe["n_sds"])]
+
+
 def make(params: dict, seed: int, workdir: str, stream: int, count: int
          ) -> list[dict]:
     """``count`` genomes of the recipe in ``params`` from (seed, stream,
-    k): each written to ``workdir/g<stream>_<k>/genome.fa``.  Returns
-    [{"fasta", "bases", "planted"}], "planted" the list of planted SDs."""
+    k): each written to ``workdir/g<stream>_<k>/genome.fa``.  With
+    ``sizes_seed`` in ``params``, genome k's SD sizes, divergences and
+    orientations come from it (``sd_specs``) and the seed draws the rest:
+    every seed then asks for the same work.  Returns
+    [{"fasta", "bases", "planted"}], "planted" the pairs of homologous
+    intervals: the planted SDs, and with ``mosaic`` the reverse SDs and the
+    mosaics' conserved blocks."""
     recipe = dict(params["recipe"])
     for key in ("repeat_len", "repeat_div"):
         if key in recipe:
@@ -206,13 +262,19 @@ def make(params: dict, seed: int, workdir: str, stream: int, count: int
     out = []
     for k in range(count):
         rng_seed = entropy(seed, stream, k)
-        chroms, planted = simulate_genome(seed=rng_seed, **recipe)
+        specs = (sd_specs(recipe, params["sizes_seed"], stream, k)
+                 if "sizes_seed" in params else None)
+        deleted = []
+        chroms, planted = simulate_genome(seed=rng_seed, sd_specs=specs,
+                                          deleted=deleted, **recipe)
         if "mosaic" in params:
             m = params["mosaic"]
-            chroms = mosaic(chroms, planted,
-                            np.random.default_rng(entropy(seed, stream, k, 1)),
-                            tuple(map(tuple, m["cores"])),
-                            tuple(map(tuple, m["keeps"])))
+            chroms, blocks = mosaic(
+                chroms, planted,
+                np.random.default_rng(entropy(seed, stream, k, 1)),
+                tuple(map(tuple, m["cores"])), tuple(map(tuple, m["keeps"])),
+                deleted)
+            planted = [sd for sd in planted if sd.is_rc] + blocks
         d = os.path.join(workdir, f"g{stream}_{k}")
         os.makedirs(d, exist_ok=True)
         fa = os.path.join(d, "genome.fa")

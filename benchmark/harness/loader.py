@@ -16,16 +16,33 @@ def manifest(root: pathlib.Path = ROOT) -> dict:
         return json.load(f)
 
 
+def unit(bench: dict, cell: str) -> str:
+    """The unit of work of ``cell`` (a genome, a pair): its driver's."""
+    cfg = config(workload(bench, cell)["config"])
+    return driver(cfg["driver"]).Driver.unit
+
+
 def with_pending(bench: dict) -> dict:
     """``bench`` with the cells held back under ``pending/`` added: each
-    file there holds one cell's entries as ``BENCHMARK.json`` would.  A
-    held-back cell is out of the measured benchmark (``PERF.md`` says why);
-    the benchmark's tests still run its code."""
+    file there holds one cell's configuration and workload as
+    ``BENCHMARK.json`` would, and the cell joins the ``workloads`` of every
+    measured metric that names a cell of its unit.  A held-back cell is out
+    of the measured benchmark (``PERF.md`` says why); the benchmark's tests
+    still run its code."""
     out = dict(bench)
     for path in sorted((BENCH_DIR / "pending").glob("*.json")):
         with open(path) as f:
-            for section, entries in json.load(f).items():
-                out[section] = out[section] + entries
+            held = json.load(f)
+        for section, entries in held.items():
+            out[section] = out[section] + entries
+        for w in held.get("workloads", []):
+            u = unit(out, w["name"])
+            for section in ("end_to_end", "per_layer"):
+                out[section] = [
+                    dict(m, workloads=m["workloads"] + [w["name"]])
+                    if "workloads" in m and any(
+                        unit(out, c) == u for c in m["workloads"]) else m
+                    for m in out[section]]
     return out
 
 

@@ -139,3 +139,23 @@ def test_readers_return_nothing_on_an_empty_context(bench):
 def test_manifest_is_plain_json():
     text = (loader.ROOT / "BENCHMARK.json").read_text()
     assert json.loads(text)
+
+
+def test_pending_cells_join_the_metrics_of_their_unit():
+    """A held-back cell joins the ``workloads`` of the measured metrics of
+    its unit (a genome cell the genome metrics), no other, and the
+    measured manifest is left as it was."""
+    b = loader.manifest()
+    before = json.dumps(b)
+    merged = loader.with_pending(b)
+    assert json.dumps(b) == before
+    held = {w["name"] for w in merged["workloads"]} - \
+        {w["name"] for w in b["workloads"]}
+    for m in merged["end_to_end"] + merged["per_layer"]:
+        if "workloads" not in m:
+            continue
+        units = {loader.unit(merged, c) for c in m["workloads"]}
+        assert len(units) == 1
+        for cell in held:
+            assert (cell in m["workloads"]) == \
+                (loader.unit(merged, cell) in units)

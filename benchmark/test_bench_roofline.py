@@ -66,3 +66,31 @@ def test_share_reads_only_gap_dp_kernels():
     assert gapdp.share(ctx) == pytest.approx(100 * least / 2e-3)
     ctx["trace"] = _Trace([("roll_batch_kernel", 5.0)])
     assert gapdp.share(ctx) is None
+
+
+def test_a_tiled_groups_tracebacks_count_once():
+    """The tiled route walks a launch group tile by tile, every walk with
+    the group's one length tensor: the record keeps the group once, so its
+    least time is counted once."""
+    import types
+
+    import torch
+
+    from harness.trace import GapDPRecord
+
+    def tile_backtrack(p, ql, tl, *args, **kwargs):
+        return None
+    wf = types.SimpleNamespace(tile_backtrack=tile_backtrack)
+    rec = GapDPRecord(wf)
+    rec.install()
+    ql = torch.tensor([9000, 9500], dtype=torch.int32)
+    tl = torch.tensor([9200, 10000], dtype=torch.int32)
+    for _ in range(5):  # five tiles, last first
+        wf.tile_backtrack(None, ql, tl, None, None, 0, 10240)
+    rec.restore()
+    groups = rec.lengths()
+    assert len(groups) == 1
+    ctx = {"peak": H100, "gapdp": groups,
+           "trace": _Trace([("tile_fill_cluster", 1e-2)])}
+    least = gapdp.least_seconds([9000, 9500], [9200, 10000], H100)
+    assert gapdp.share(ctx) == pytest.approx(100 * least / 1e-2)

@@ -3,7 +3,7 @@ program on its host route (with the card route's region path, so that its
 gap DPs go through the aligner) at a size a test holds.  Sound, a run
 reports correct with the contract's keys; with the timed path broken
 underneath, correct comes out false, once for each fault the cells can have
-(neither has a training state or an exchange between chips): half of the
+(no cell has a training state or an exchange between chips): half of the
 work left out, and an answer altered where it is produced; and under the
 control, an approximate gap DP."""
 
@@ -24,6 +24,24 @@ def tiny(cell: str) -> dict:
         t["recipe"] = dict(t["recipe"], length=1_200_000, n_sds=10,
                            repeat_families=4)
         t["pool"], t["check_genomes"] = 1, 1
+    elif cell == "genome-mosaic":
+        # the small-core class only, and N-runs at a spacing the short
+        # chromosomes hold: on the CPU every gap DP takes the host route,
+        # where the 10 Kbp class's would take seconds each.  The coverage
+        # reads the reverse SDs and the mosaics' conserved blocks, and
+        # stage 1 gives each reverse SD one seed row over its length: four
+        # SDs, half of them reverse, give the half faults some to leave out.
+        t["recipe"] = dict(t["recipe"], length=1_200_000, n_sds=4,
+                           sd_min=30_000, sd_max=40_000,
+                           n_run_every=199_000, repeat_families=1,
+                           rc_fraction=0.5)
+        small = t["mosaic"]["cores"][1], t["mosaic"]["keeps"][1]
+        t["mosaic"] = {"cores": [small[0]] * 2, "keeps": [small[1]] * 2}
+        # the recipe's own draws: at this size ``sizes_seed`` puts both
+        # reverse SDs on one chromosome, under one reverse seed row that
+        # the half-seeds fault keeps
+        del t["sizes_seed"]
+        t["pool"], t["check_genomes"] = 1, 1
     else:
         t["pool"], t["check_pairs"] = 10, 6
         t["max_len"] = 30_000
@@ -36,7 +54,8 @@ def _run(cell: str, monkeypatch, plant=None) -> dict:
                          traffic=tiny(cell), plant=plant)
 
 
-@pytest.mark.parametrize("cell", ["genome-dense", "pairs-rand"])
+@pytest.mark.parametrize("cell", ["genome-dense", "genome-mosaic",
+                                  "pairs-rand"])
 def test_sound_run_is_correct_with_the_contract_keys(cell, monkeypatch):
     out = _run(cell, monkeypatch)
     assert list(out) == ["correct", "attempted", "failed", "metrics",
@@ -59,6 +78,11 @@ def test_sound_run_is_correct_with_the_contract_keys(cell, monkeypatch):
     ("genome-dense", "half_regions", "final_missed_pct"),
     ("genome-dense", "altered", "aligned_rows_unsound"),
     ("genome-dense", "altered", "final_rows_unsound"),
+    ("genome-mosaic", "control", "gapdp_suboptimal"),
+    ("genome-mosaic", "half_seeds", "seed_missed_pct"),
+    ("genome-mosaic", "half_regions", "final_missed_pct"),
+    ("genome-mosaic", "altered", "aligned_rows_unsound"),
+    ("genome-mosaic", "altered", "final_rows_unsound"),
     ("pairs-rand", "control", "gapdp_suboptimal"),
     ("pairs-rand", "half_pairs", "chain_missed_pct"),
     ("pairs-rand", "altered", "chain_hits_unsound"),

@@ -80,3 +80,15 @@ def test_gap_dp_record_wraps_the_aligners_lookup(monkeypatch):
     got = sorted((int(q), int(t)) for ql, tl in rec.lengths()
                  for q, t in zip(ql, tl) if (q, t) != (1, 1))
     assert got == sorted((len(q), len(t)) for q, t in pairs)
+
+
+def test_cluster_fill_reads_its_kernel_a_unit():
+    from harness import loader
+    read = loader.metric("cluster_fill.ms_per_genome").read
+    t = _trace([_Ev(6.0, 6.5, "void tile_fill_cluster<0, 4>(signed char "
+                    "const*, int, int)"),
+                _Ev(7.0, 7.25, "void tile_fill_cluster<1, 2>(x)"),
+                _Ev(8.0, 9.0, "fill_owned(x)")])
+    assert read({"trace": t, "n": 5}) == pytest.approx(1e3 * 0.75 / 5)
+    t = _trace([_Ev(8.0, 9.0, "fill_owned(x)")])
+    assert read({"trace": t, "n": 5}) is None
