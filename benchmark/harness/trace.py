@@ -1,6 +1,7 @@
 """The device trace of a traced run: torch.profiler's CUDA activity
 (kernels, copies, sets) over the window, its union as the device's busy
-time, the kernels by name, and the idle gaps by what the host was doing.
+time, the kernels by name, and the idle gaps by what the host was doing:
+the benchmark's span and the program's own.
 
 The union of activity intervals follows ``chip_smoke.py``'s ``_CudaTrace``
 (torch.profiler, CUDA activity only), taken as a union of intervals rather
@@ -15,6 +16,8 @@ import functools
 import re
 import time
 from collections import defaultdict
+
+from harness.program import open_at
 
 _MARK = "spin_kernel"
 
@@ -100,14 +103,17 @@ class DeviceTrace:
         return [[k, v] for k, v in sorted(per.items(),
                                           key=lambda kv: -kv[1])[:n]]
 
-    def idle_gaps(self, spans, n: int = 10) -> list[list]:
+    def idle_gaps(self, spans, n: int = 10, program=None) -> list[list]:
         """The ``n`` longest idle gaps, each named by the benchmark span
-        open on the host at its middle."""
+        open on the host at its middle and, given the program's trace
+        snapshot, `` > `` and the innermost program span open then on each
+        thread (``harness/program.open_at``)."""
         out = []
         for a, b in sorted(self.gaps, key=lambda g: g[0] - g[1])[:n]:
             mid = (a + b) / 2 - self.offset
-            out.append([spans.at(mid) or "outside the program's calls",
-                        b - a])
+            name = spans.at(mid) or "outside the program's calls"
+            inner = open_at(program, mid) if program is not None else None
+            out.append([f"{name} > {inner}" if inner else name, b - a])
         return out
 
 

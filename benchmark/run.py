@@ -10,10 +10,13 @@ the program's aligner and warms it up (all of that is ``setup_s``), drives
 the program for the window, reads the card's memory peak, frees the program,
 then has the plain reference judge a sample of the window's answers.
 ``--trace 1`` runs the same window under torch.profiler's CUDA activity,
-with the benchmark's spans around the program's entry calls, and reports
-the per-layer metrics instead of the end-to-end ones.  ``--plant <name>``
-puts the control or a fault in the program's place, for the readings the
-check's limits are set from; a measured run never takes it.
+with the benchmark's spans around the program's entry calls and the
+program's own spans and counters on (``sedef_tpu_torch/trace.py``, reset
+at the window's start), and reports the per-layer metrics instead of the
+end-to-end ones; an untraced run leaves the program's trace off.
+``--plant <name>`` puts the control or a fault in the program's place, for
+the readings the check's limits are set from; a measured run never takes
+it.
 """
 
 from __future__ import annotations
@@ -73,7 +76,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
             torch.cuda.synchronize()
         setup_s = time.perf_counter() - T0
 
-        spans = dev_trace = shapes = None
+        spans = dev_trace = shapes = snap = None
         stack = plants.planted(plant, drv)
         stack.__enter__()
         drv.record()
@@ -86,15 +89,24 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
                 spans.install(owner, attr, name)
             shapes = GapDPRecord(wavefront)
             shapes.install()
+            from sedef_tpu_torch import trace as program_trace
             dev_trace = DeviceTrace(torch)
             dev_trace.__enter__()
+            # zeroes every registered counter too: they count the window
+            program_trace.reset()
+            program_trace.enable()
         try:
             res = drv.window(seconds)
         finally:
             if trace:
+                program_trace.disable()
                 dev_trace.__exit__(None, None, None)
                 spans.restore()
                 shapes.restore()
+                snap = program_trace.snapshot()
+                print(f"program trace: {len(snap['spans'])} spans kept, "
+                      f"{snap['counters']['trace']['dropped']} dropped",
+                      file=sys.stderr)
             stack.__exit__(None, None, None)
         if on_card:
             torch.cuda.synchronize()
@@ -122,7 +134,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         kind = torch.cuda.get_device_name(0) if on_card else "cpu"
         ctx = {"unit": drv.unit, "n": res["n"], "spans": spans.seconds(),
                "trace": dev_trace, "gapdp": gap_lengths,
-               "peak": peak_of(kind)}
+               "peak": peak_of(kind), "program": snap}
         for m in layer:
             v = loader.metric(m["name"]).read(ctx)
             if v is not None:
@@ -143,7 +155,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         out["device"]["busy_s"] = dev_trace.busy_s
         out["device"]["window_s"] = dev_trace.window_s
         out["breakdown"] = {"device_ops": dev_trace.device_ops(),
-                            "idle_gaps": dev_trace.idle_gaps(spans)}
+                            "idle_gaps": dev_trace.idle_gaps(
+                                spans, program=snap)}
     out["checks"] = {c["name"]: {"value": c["value"], "op": c["op"],
                                  "limit": c["limit"]} for c in checks}
     return out

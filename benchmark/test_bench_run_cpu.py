@@ -7,10 +7,13 @@ underneath, correct comes out false, once for each fault the cells can have
 work left out, and an answer altered where it is produced; and under the
 control, an approximate gap DP."""
 
+import time
+
 import pytest
 
 import run as bench_run
 from harness import loader
+from harness import trace as harness_trace
 
 # genome-dense is held back in pending/ (PERF.md): its code stays tested
 pytestmark = pytest.mark.usefixtures("with_pending")
@@ -57,7 +60,12 @@ def _run(cell: str, monkeypatch, plant=None) -> dict:
 @pytest.mark.parametrize("cell", ["genome-dense", "genome-mosaic",
                                   "pairs-rand"])
 def test_sound_run_is_correct_with_the_contract_keys(cell, monkeypatch):
+    from sedef_tpu_torch import trace
+    trace.reset()
     out = _run(cell, monkeypatch)
+    # an untraced run leaves the program's trace off: no span recorded
+    assert trace.span("x") is trace.NOOP
+    assert trace.snapshot()["spans"] == []
     assert list(out) == ["correct", "attempted", "failed", "metrics",
                          "device", "checks"]
     assert out["correct"] is True, out["checks"]
@@ -102,3 +110,86 @@ def test_plants_are_undone(monkeypatch):
     _run("genome-dense", monkeypatch, "half_seeds")
     assert before == (pipeline.search_stage, pipeline.align_stage,
                       pipeline.OverlappedTail._submit_bin)
+
+
+class _HostTrace:
+    """The device trace's stand-in where there is no card: no activity, and
+    an idle gap of 50 ms every 100 ms of the window, for the names."""
+
+    def __init__(self, torch):
+        self.kernels, self.busy_s, self.offset = [], 0.0, 0.0
+
+    def __enter__(self):
+        self.h0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.window_s = time.perf_counter() - self.h0
+        self.gaps = [(self.h0 + i / 10, self.h0 + i / 10 + 0.05)
+                     for i in range(int(self.window_s * 10))]
+
+    def device_ops(self):
+        return []
+
+    idle_gaps = harness_trace.DeviceTrace.idle_gaps
+
+
+# their spans open only around a wait for a card: the prefilter's or the
+# roll engine's records (stage 1's engines stay on the host for a ``cpu``
+# aligner), a coalescing round (a host aligner dispatches at once)
+CARD_ONLY = {"seed_wait.ms_per_pair", "seed_wait.ms_per_genome",
+             "coalesce_wait.ms_per_genome"}
+
+
+@pytest.mark.parametrize("cell", ["genome-mosaic", "pairs-rand"])
+def test_traced_run_reads_the_programs_spans_and_counters(cell, monkeypatch):
+    """A traced run on the CPU, the device trace stood in for: the readers
+    get the window's program trace as ``ctx["program"]``, every metric of
+    the cell that reads the program's spans or counters gives a number
+    (but those whose spans need a card: None), the idle gaps name program
+    spans, and the program's trace is off again after the window."""
+    from sedef_tpu_torch import trace
+    from sedef_tpu_torch.ops.wavefront import WavefrontAligner
+    monkeypatch.setattr(harness_trace, "DeviceTrace", _HostTrace)
+    if cell == "pairs-rand":
+        # a pair's gap-DP batches are under the floors: send the larger
+        # ones to the card route's plain versions, for its spans and
+        # counters (a genome's reach it at the floors)
+        monkeypatch.setattr(WavefrontAligner, "DEVICE_BATCH_MIN", 1)
+        monkeypatch.setattr(WavefrontAligner, "DEVICE_BATCH_MIN_CELLS",
+                            20_000)
+    ctxs = []
+    metric = loader.metric
+
+    def recording(name):
+        mod = metric(name)
+
+        class Reader:
+            SOURCE = mod.SOURCE
+
+            @staticmethod
+            def read(ctx):
+                ctxs.append(ctx)
+                return mod.read(ctx)
+        return Reader
+    monkeypatch.setattr(loader, "metric", recording)
+    monkeypatch.setenv("SEDEF_NATIVE_REGION", "0")
+    out = bench_run.run(cell, SEED, 1.0, True, device="cpu",
+                        traffic=tiny(cell))
+    assert out["correct"] is True, out["checks"]
+    assert trace.span("x") is trace.NOOP
+    snap = ctxs[0]["program"]
+    assert snap["spans"] and snap["counters"]["trace"]["dropped"] == 0
+    assert snap["counters"]["gapdp"]["problems.card"] > 0
+    _, layer = loader.cell_metrics(loader.manifest(), cell)
+    program = [m["name"] for m in layer
+               if m["source"] in ("program_span", "program_counter")]
+    assert set(CARD_ONLY) & set(program)
+    for name in program:
+        v = metric(name).read(ctxs[0])
+        if name in CARD_ONLY:
+            assert v is None, name
+        else:
+            assert isinstance(v, float) and v > 0, (name, v)
+            assert out["metrics"][name]["value"] == v
+    assert any(" > " in name for name, _ in out["breakdown"]["idle_gaps"])
