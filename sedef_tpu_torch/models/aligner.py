@@ -11,10 +11,12 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
+
 from .. import trace
 from ..config import DEFAULT, Config
 from ..io.bed import Hit, SeqRef
-from ..ops.anchors import generate_anchors
+from ..ops.anchors import L, Q, R, generate_anchors
 from ..ops.chain import chain_anchors
 from ..ops.cigar import Alignment, AlnStats
 from ..ops.wavefront import WavefrontAligner
@@ -165,6 +167,11 @@ def refine_chains(hits: list[Hit], qseq: str, rseq: str, orig: Hit,
 _NATIVE = {"route": "native"}
 _PYTHON = {"route": "python"}
 
+# regions by route; on the Python route, the anchors scanned, those in the
+# chains kept, and the gaps between those that the chains' alignments plan
+REGION = trace.Counters("region", ("python", "native", "anchors", "chained",
+                                   "gaps"))
+
 
 def fast_align(query: str, ref: str, orig: Hit, kmer_size: int = 11,
                cfg: Config = DEFAULT,
@@ -179,6 +186,7 @@ def fast_align(query: str, ref: str, orig: Hit, kmer_size: int = 11,
                 query.encode("ascii"), ref.encode("ascii"), same_chr,
                 orig.query_start, orig.ref_start, kmer_size, cfg)
         if rows is not None:
+            REGION.add("native")
             out: list[Hit] = []
             for qs, qe, rs, re, m, mm, gb, cigar in rows:
                 h = Hit(SeqRef("QRY", False, len(query)), qs, qe,
@@ -202,33 +210,37 @@ def _python_region(query: str, ref: str, orig: Hit, kmer_size: int,
     with trace.span("region.chain"):
         path, bounds = chain_anchors(anchors, cfg)
 
+    # every chain at once: chain c is path[bs[c]:be[c]], its last anchor
+    # (along the strings) first
+    bs, be, has_u = bounds[:-1, 0], bounds[1:, 0], bounds[1:, 1]
+    lo, hi = anchors[path[be - 1]], anchors[path[bs]]
+    qlo, rlo = lo[:, Q], lo[:, R]
+    qhi, rhi = hi[:, Q] + hi[:, L], hi[:, R] + hi[:, L]
+    span = np.maximum(rhi - rlo, qhi - qlo)
+    keep = np.flatnonzero(
+        ((has_u > 0) & (span >= cfg.chain.min_uppercase_match))
+        | (span >= cfg.search.min_read_size * (1 - cfg.search.max_error)))
+    # the kept chains' anchors in order along the strings, one chain after
+    # another: each chain's slice of ``path``, reversed
+    size = be[keep] - bs[keep]
+    starts = np.zeros(len(keep) + 1, dtype=np.int64)
+    np.cumsum(size, out=starts[1:])
+    rows = anchors[path[np.repeat(be[keep] - 1 + starts[:-1], size)
+                        - np.arange(starts[-1])]]
+    REGION.update({"python": 1, "anchors": len(anchors),
+                   "chained": int(starts[-1]),
+                   "gaps": int(starts[-1]) - len(keep)})
+
     query_ref = SeqRef("QRY", False, len(query))
     ref_ref = SeqRef("REF", False, len(ref))
-
+    alns = Alignment.from_anchors_many(query, ref, rows, starts, aligner)
     hits: list[Hit] = []
-    guides: list[list[int]] = []
-    for bi in range(1, len(bounds)):
-        be, has_u = bounds[bi]
-        bs = bounds[bi - 1][0]
-        qlo = anchors[path[be - 1]].q
-        qhi = anchors[path[bs]].q + anchors[path[bs]].l
-        rlo = anchors[path[be - 1]].r
-        rhi = anchors[path[bs]].r + anchors[path[bs]].l
-        span = max(rhi - rlo, qhi - qlo)
-        if ((not has_u or span < cfg.chain.min_uppercase_match)
-                and span < cfg.search.min_read_size
-                * (1 - cfg.search.max_error)):
-            continue
-        hits.append(Hit(query_ref, qlo, qhi, ref_ref, rlo, rhi,
-                        jaccard=has_u))
-        guides.append([path[i] for i in range(be - 1, bs - 1, -1)])
-
-    guide_tuples = [
-        [(anchors[g].q, anchors[g].r, anchors[g].l) for g in guide]
-        for guide in guides]
-    alns = Alignment.from_anchors_many(query, ref, guide_tuples, aligner)
-    for h, aln in zip(hits, alns):
+    for qs, qe, rs, re, u, aln in zip(
+            qlo[keep].tolist(), qhi[keep].tolist(), rlo[keep].tolist(),
+            rhi[keep].tolist(), has_u[keep].tolist(), alns):
+        h = Hit(query_ref, qs, qe, ref_ref, rs, re, jaccard=u)
         h.aln = aln
         h.update_from_alignment()
+        hits.append(h)
 
     return refine_chains(hits, query, ref, orig, cfg, aligner)

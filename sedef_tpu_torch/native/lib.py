@@ -541,7 +541,8 @@ def fast_align_region(query: bytes, ref: bytes, same_chr: bool, oqs: int,
 
 
 def chain(aq, ar, al, ahu, max_chain_gap: int, match_chain_score: int):
-    """Returns (path int32 array, boundaries list[(end, has_u)])."""
+    """Returns (path int32 array, boundaries (m, 2) int64 array of
+    (end, has_u))."""
     n = len(aq)
     path = np.empty(max(n, 1), dtype=np.int32)
     bcap = 2 * (n + 2)
@@ -553,7 +554,6 @@ def chain(aq, ar, al, ahu, max_chain_gap: int, match_chain_score: int):
         np.ascontiguousarray(ahu, np.int32), n,
         max_chain_gap, match_chain_score, path, bounds, bcap)
     assert nb >= 0
-    bl = bounds[:2 * nb].tolist()  # one C pass, not per-element casts
-    boundaries = [(bl[2 * i], bl[2 * i + 1]) for i in range(nb)]
-    npath = boundaries[-1][0] if boundaries else 0
+    boundaries = bounds[:2 * nb].reshape(nb, 2)
+    npath = int(boundaries[-1, 0]) if nb else 0
     return path[:npath], boundaries

@@ -10,11 +10,13 @@ reference's per-seed scan loop becomes: sort/searchsorted join -> per
 diagonal, match-run decomposition -> one anchor per (diagonal, run) at the
 first seed of the run.  Output order matches the reference's (q, then
 posting order = r) emission.
+
+Anchors are rows of an ``(n, 4)`` int32 array, columns ``Q, R, L, HAS_U``
+(the reference's ``Anchor`` fields): the native scan's output as it is,
+with no object per anchor.
 """
 
 from __future__ import annotations
-
-from dataclasses import dataclass
 
 import numpy as np
 
@@ -22,13 +24,12 @@ from .dna import encode
 
 _N_CODE = 4  # sentinel for is-N in this module
 
+# the anchor array's columns
+Q, R, L, HAS_U = range(4)
 
-@dataclass
-class Anchor:
-    q: int
-    r: int
-    l: int
-    has_u: int
+
+def _none() -> np.ndarray:
+    return np.empty((0, 4), dtype=np.int32)
 
 
 def _kmer_hashes(seq: str, k: int) -> tuple[np.ndarray, np.ndarray]:
@@ -54,7 +55,9 @@ def _kmer_hashes(seq: str, k: int) -> tuple[np.ndarray, np.ndarray]:
 def generate_anchors(query: str, ref: str, same_chr: bool,
                      orig_query_start: int, orig_ref_start: int,
                      kmer_size: int, max_posting: int = 1000
-                     ) -> list[Anchor]:
+                     ) -> np.ndarray:
+    """The anchors of ``query`` against ``ref``: ``(n, 4)`` int32 rows
+    (q, r, len, has_u), q ascending, then r."""
     try:
         from ..native import lib as _native
     except Exception:  # pragma: no cover
@@ -64,20 +67,17 @@ def generate_anchors(query: str, ref: str, same_chr: bool,
         # native scalar scan: ~6x the vectorized numpy join on the
         # production region sizes (profiled round 4: generate_anchors
         # was 67% of align-stage region time)
-        rows = _native.anchors(query.encode(), ref.encode(), same_chr,
+        return _native.anchors(query.encode(), ref.encode(), same_chr,
                                orig_query_start, orig_ref_start,
                                kmer_size, max_posting)
-        # tolist() yields plain ints in one C pass — per-element numpy
-        # casts cost ~3 us/row, ~10x the native scan per anchor
-        return [Anchor(q, r, l, u) for q, r, l, u in rows.tolist()]
     qh, qv = _kmer_hashes(query, kmer_size)
     rh, rv = _kmer_hashes(ref, kmer_size)
     if qh.size == 0 or rh.size == 0:
-        return []
+        return _none()
 
     r_pos = np.nonzero(rv)[0].astype(np.int64)
     if r_pos.size == 0:
-        return []
+        return _none()
     r_hash = rh[r_pos]
     order = np.argsort(r_hash, kind="stable")  # stable keeps r ascending
     r_hash_s = r_hash[order]
@@ -103,7 +103,7 @@ def generate_anchors(query: str, ref: str, same_chr: bool,
     ok = found & (sizes < max_posting)  # chain.cc:61 (>= 1000 skipped)
     q_pos, lo, sizes = q_pos[ok], lo[ok], sizes[ok]
     if q_pos.size == 0:
-        return []
+        return _none()
 
     # expand the join into (q, r) pair arrays, q-major then posting order
     pair_q = np.repeat(q_pos, sizes)
@@ -118,7 +118,7 @@ def generate_anchors(query: str, ref: str, same_chr: bool,
                       - (orig_query_start + pair_q)) > kmer_size
         pair_q, pair_r = pair_q[keep], pair_r[keep]
     if pair_q.size == 0:
-        return []
+        return _none()
 
     # Candidate anchors: a pair (q, r) can start an anchor only if its
     # predecessor pair (q-1, r-1) is absent from the (filtered) join — the
@@ -181,15 +181,15 @@ def generate_anchors(query: str, ref: str, same_chr: bool,
                  + (pu_r[cr + ln_all] - pu_r[cr])) > 0
 
     # per-diagonal slide pass in (diag, q) order (chain.cc:64-98)
-    anchors: list[Anchor] = []
+    kept = np.zeros(len(cq), dtype=bool)
     slide: dict[int, int] = {}
-    for q0, r0, d, ln, has_u in zip(cq.tolist(), cr.tolist(), cd.tolist(),
-                                    ln_all.tolist(), has_u_all.tolist()):
+    for i, (q0, d, ln) in enumerate(zip(cq.tolist(), cd.tolist(),
+                                        ln_all.tolist())):
         if q0 >= slide.get(d, -1):
             assert ln >= kmer_size
-            anchors.append(Anchor(q0, r0, ln, int(has_u)))
+            kept[i] = True
             slide[d] = q0 + ln
-
+    out = np.stack([cq[kept], cr[kept], ln_all[kept], has_u_all[kept]],
+                   axis=1).astype(np.int32)
     # reference emission order: q ascending, then r ascending
-    anchors.sort(key=lambda a: (a.q, a.r))
-    return anchors
+    return out[np.lexsort((out[:, R], out[:, Q]))]

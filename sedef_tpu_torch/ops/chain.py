@@ -15,8 +15,10 @@ determined by that propagation order and affects which chains are emitted.
 
 from __future__ import annotations
 
+import numpy as np
+
 from ..config import DEFAULT, Config
-from .anchors import Anchor
+from .anchors import HAS_U, L, Q, R
 
 MIN_SCORE = -(1 << 62)
 
@@ -137,14 +139,17 @@ class PrioritySegmentTree:
         return -1 if i == -1 else self.tree_a[i]
 
 
-def chain_anchors(anchors: list[Anchor], cfg: Config = DEFAULT,
+def chain_anchors(anchors: np.ndarray, cfg: Config = DEFAULT,
                   use_native: bool | None = None
-                  ) -> tuple[list[int], list[tuple[int, int]]]:
-    """chain.cc:103-199; returns (path, boundaries).  Dispatches to the
-    parity-tested native DP unless disabled (SEDEF_NO_NATIVE=1)."""
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """chain.cc:103-199 over ``generate_anchors``' ``(n, 4)`` rows; returns
+    (path, boundaries): the anchors' indices chain after chain, and an
+    ``(m, 2)`` int64 array of (end in ``path``, has_u) a chain, led by
+    (0, 0).  Dispatches to the parity-tested native DP unless disabled
+    (SEDEF_NO_NATIVE=1)."""
     n = len(anchors)
     if n == 0:
-        return [], [(0, 0)]
+        return np.empty(0, np.int32), np.zeros((1, 2), np.int64)
     if use_native is None:
         import os
         use_native = os.environ.get("SEDEF_NO_NATIVE", "") == ""
@@ -154,24 +159,23 @@ def chain_anchors(anchors: list[Anchor], cfg: Config = DEFAULT,
         except Exception:  # pragma: no cover
             _native = None
         if _native is not None and _native.has("chain"):
-            path, bounds = _native.chain(
-                [a.q for a in anchors], [a.r for a in anchors],
-                [a.l for a in anchors], [a.has_u for a in anchors],
-                cfg.chain.max_chain_gap, cfg.chain.match_chain_score)
-            return (path.tolist() if hasattr(path, "tolist")
-                    else list(path)), bounds
+            return _native.chain(
+                anchors[:, Q], anchors[:, R], anchors[:, L],
+                anchors[:, HAS_U], cfg.chain.max_chain_gap,
+                cfg.chain.match_chain_score)
     mcg = cfg.chain.max_chain_gap
     mcs = cfg.chain.match_chain_score
+    aq, ar, al, ahu = (anchors[:, c].tolist() for c in (Q, R, L, HAS_U))
 
     xs = []
     ys_entries = []
     max_q = max_r = 0
-    for i, a in enumerate(anchors):
-        xs.append(((a.q, i), i))
-        xs.append(((a.q + a.l, i), i))
-        ys_entries.append(((a.r + a.l - 1, i), i))
-        max_q = max(max_q, a.q + a.l)
-        max_r = max(max_r, a.r + a.l)
+    for i in range(n):
+        xs.append(((aq[i], i), i))
+        xs.append(((aq[i] + al[i], i), i))
+        ys_entries.append(((ar[i] + al[i] - 1, i), i))
+        max_q = max(max_q, aq[i] + al[i])
+        max_r = max(max_r, ar[i] + al[i])
     xs.sort(key=lambda e: e[0])
     tree = PrioritySegmentTree(ys_entries)
 
@@ -179,23 +183,21 @@ def chain_anchors(anchors: list[Anchor], cfg: Config = DEFAULT,
     dp = [[0, i] for i in range(n)]
     deactivate_bound = 0
     for xi, (coord, i) in enumerate(xs):
-        a = anchors[i]
-        if coord[0] == a.q:  # start event
+        if coord[0] == aq[i]:  # start event
             while deactivate_bound < xi:
                 t = xs[deactivate_bound][1]
                 tc = xs[deactivate_bound][0][0]
-                if tc == anchors[t].q + anchors[t].l:  # end event
-                    if a.q - (anchors[t].q + anchors[t].l) <= mcg:
+                if tc == aq[t] + al[t]:  # end event
+                    if aq[i] - (aq[t] + al[t]) <= mcg:
                         break
-                    tree.deactivate((anchors[t].r + anchors[t].l - 1, t))
+                    tree.deactivate((ar[t] + al[t] - 1, t))
                 deactivate_bound += 1
-            w = mcs * a.has_u + (mcs // 2) * (a.l - a.has_u)
-            j = tree.rmq((a.r - mcg, 0), (a.r - 1, n))
+            w = mcs * ahu[i] + (mcs // 2) * (al[i] - ahu[i])
+            j = tree.rmq((ar[i] - mcg, 0), (ar[i] - 1, n))
             if j != -1 and tree.scores[j] != MIN_SCORE:
                 j = tree.pos[j]
-                p = anchors[j]
-                assert a.q >= p.q + p.l and a.r >= p.r + p.l
-                gap = (a.q - (p.q + p.l)) + (a.r - (p.r + p.l))
+                assert aq[i] >= aq[j] + al[j] and ar[i] >= ar[j] + al[j]
+                gap = (aq[i] - (aq[j] + al[j])) + (ar[i] - (ar[j] + al[j]))
                 if w + dp[j][0] - gap > 0:
                     dp[i][0] = w + dp[j][0] - gap
                     prev[i] = j
@@ -204,8 +206,8 @@ def chain_anchors(anchors: list[Anchor], cfg: Config = DEFAULT,
             else:
                 dp[i][0] = w
         else:  # end event
-            gap = (max_q + 1 - (a.q + a.l)) + (max_r + 1 - (a.r + a.l))
-            tree.activate((a.r + a.l - 1, i), dp[i][0] - gap)
+            gap = (max_q + 1 - (aq[i] + al[i])) + (max_r + 1 - (ar[i] + al[i]))
+            tree.activate((ar[i] + al[i] - 1, i), dp[i][0] - gap)
 
     dp_sorted = sorted(dp, key=lambda x: (x[0], x[1]), reverse=True)
 
@@ -218,8 +220,9 @@ def chain_anchors(anchors: list[Anchor], cfg: Config = DEFAULT,
         has_u = 0
         while maxi != -1 and not used[maxi]:
             path.append(maxi)
-            has_u += anchors[maxi].has_u
+            has_u += ahu[maxi]
             used[maxi] = True
             maxi = prev[maxi]
         boundaries.append((len(path), has_u))
-    return path, boundaries
+    return (np.array(path, dtype=np.int32),
+            np.array(boundaries, dtype=np.int64))

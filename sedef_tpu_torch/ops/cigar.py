@@ -15,6 +15,7 @@ CIGAR ops ('M'/'D'/'I'): 'M' consumes both sequences, 'D' consumes only
 
 from __future__ import annotations
 
+import itertools
 import re
 
 import numpy as np
@@ -26,6 +27,7 @@ from .wavefront import WavefrontAligner
 
 _DASH = ord("-")
 _N = ord("N")
+_M, _D, _I = ord("M"), ord("D"), ord("I")
 _CIGAR_RE = re.compile(r"(\d*)([A-Za-z])")
 
 
@@ -40,58 +42,62 @@ def _ceq_arrays(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 _default_aligner: WavefrontAligner | None = None
 
 
+def _gap_jobs(qstr: str, rstr: str, qpe: np.ndarray, rpe: np.ndarray,
+              qgap: np.ndarray, rgap: np.ndarray
+              ) -> tuple[np.ndarray, np.ndarray,
+                         list[tuple[np.ndarray, np.ndarray]]]:
+    """The reference's gap policy (align.cc:126-145) over arrays of gaps
+    ``qstr[qpe:qpe + qgap]`` / ``rstr[rpe:rpe + rgap]``: a gap with both
+    sides is a DP, of both sides whole where each is at most 1,000 bases,
+    else ("big") of their first min(qgap, rgap) bases followed by one
+    indel of the rest, ``I`` where qgap <= rgap (of length 0 where they
+    are equal), else ``D`` (the reference's ma1/ma2 comparison is a no-op,
+    ma1 always wins); a one-sided gap is one indel.  Returns (dp, big,
+    jobs): the gaps that take a DP, those that are big, and the DP
+    problems (code views) in gap order."""
+    dp = (qgap > 0) & (rgap > 0)
+    if not dp.any():
+        return dp, dp, []
+    big = dp & ((qgap > 1000) | (rgap > 1000))
+    mi = np.minimum(qgap, rgap)
+    # encode the region once and slice code VIEWS per gap — dozens of
+    # per-substring encodes cost more than two full-region LUT gathers
+    qcodes = encode_align(qstr)
+    rcodes = encode_align(rstr)
+    # NOTE: the chunked align_strings path only matters above
+    # MAX_KSW_SEQ_LEN = 60 Kbp; double-sided DP jobs here are bounded by
+    # MAX_GAP = 10 Kbp (refine) so plain align_batch is equivalent.
+    jobs = [(qcodes[a:a + n], rcodes[b:b + t]) for a, n, b, t in zip(
+        qpe[dp].tolist(), np.where(big, mi, qgap)[dp].tolist(),
+        rpe[dp].tolist(), np.where(big, mi, rgap)[dp].tolist())]
+    return dp, big, jobs
+
+
 def _batch_gap_cigars(qstr: str, rstr: str,
                       gaps: list[tuple[int, int, int, int]],
                       aligner: WavefrontAligner
                       ) -> list[list[tuple[str, int]]]:
-    """CIGARs for inter-block gaps, batched through the aligner.
-
-    gaps: (qpe, qs, rpe, rs) per gap.  Applies the reference's gap policy
-    (align.cc:126-145): both-sided small gaps -> full DP; big double gaps
-    -> same-length DP plus one indel (the reference's ma1/ma2 comparison
-    is a no-op, ma1 always wins); one-sided gaps -> pure indel."""
-    jobs: list[tuple[np.ndarray, np.ndarray]] = []
-    plan: list[tuple] = []  # (kind, ...) per gap
-    # encode the region once and slice code VIEWS per gap — dozens of
-    # per-substring encodes cost more than two full-region LUT gathers
-    qcodes = encode_align(qstr) if gaps else None
-    rcodes = encode_align(rstr) if gaps else None
-    for (qpe, qs, rpe, rs) in gaps:
-        qgap, rgap = qs - qpe, rs - rpe
-        if qgap and rgap:
-            if qgap <= 1000 and rgap <= 1000:
-                plan.append(("dp", len(jobs)))
-                jobs.append((qcodes[qpe:qs], rcodes[rpe:rs]))
-            else:
-                mi = min(qgap, rgap)
-                ma = max(qgap, rgap)
-                plan.append(("dp_indel", len(jobs),
-                             "I" if qgap == mi else "D", ma - mi))
-                jobs.append((qcodes[qpe:qpe + mi],
-                             rcodes[rpe:rpe + mi]))
-        elif qgap:
-            plan.append(("D", qgap))
-        elif rgap:
-            plan.append(("I", rgap))
-        else:
-            plan.append(("none",))
-    # NOTE: the chunked align_strings path only matters above
-    # MAX_KSW_SEQ_LEN = 60 Kbp; double-sided DP jobs here are bounded by
-    # MAX_GAP = 10 Kbp (refine) so plain align_batch is equivalent.
-    cigars = aligner.align_batch(jobs) if jobs else []
+    """CIGARs for inter-block gaps (qpe, qs, rpe, rs), batched through the
+    aligner under :func:`_gap_jobs`' policy."""
+    if not gaps:
+        return []
+    qpe, qs, rpe, rs = np.array(gaps, dtype=np.int64).T
+    dp, big, jobs = _gap_jobs(qstr, rstr, qpe, rpe, qs - qpe, rs - rpe)
+    cigars = iter(aligner.align_batch(jobs) if jobs else [])
     out: list[list[tuple[str, int]]] = []
-    for entry in plan:
-        kind = entry[0]
-        if kind == "dp":
-            out.append(list(cigars[entry[1]]))
-        elif kind == "dp_indel":
-            cig = list(cigars[entry[1]])
-            cig.append((entry[2], entry[3]))
-            out.append(cig)
-        elif kind in ("D", "I"):
-            out.append([(kind, entry[1])])
+    for qgap, rgap, d, b in zip((qs - qpe).tolist(), (rs - rpe).tolist(),
+                                dp.tolist(), big.tolist()):
+        if d:
+            cig = list(next(cigars))
+            if b:
+                cig.append(("I" if qgap <= rgap else "D", abs(qgap - rgap)))
+        elif qgap:
+            cig = [("D", qgap)]
+        elif rgap:
+            cig = [("I", rgap)]
         else:
-            out.append([])
+            cig = []
+        out.append(cig)
     return out
 
 
@@ -208,60 +214,106 @@ class Alignment:
         return al
 
     @classmethod
-    def from_anchors(cls, qstr: str, rstr: str,
-                     anchors: list[tuple[int, int, int]],
-                     aligner: WavefrontAligner | None = None) -> "Alignment":
-        """Stitch exact-match anchors (q, r, len) with aligned gaps
-        (align.cc:199-270)."""
-        return cls.from_anchors_many(qstr, rstr, [anchors], aligner)[0]
-
-    @classmethod
-    def from_anchors_many(cls, qstr: str, rstr: str,
-                          guides: list[list[tuple[int, int, int]]],
+    def from_anchors_many(cls, qstr: str, rstr: str, anchors: np.ndarray,
+                          starts: np.ndarray,
                           aligner: WavefrontAligner | None = None
                           ) -> list["Alignment"]:
-        """from_anchors for many chains at once: every chain's inter-anchor
+        """Stitch chains of exact-match anchors with aligned gaps
+        (align.cc:199-270), every chain at once: chain ``c`` is the rows
+        ``anchors[starts[c]:starts[c + 1]]`` (at least one), (q, r, len) in
+        their first columns, in order along both strings.  Every chain's
         gap DP goes into ONE batched aligner call (the device-side win for
-        stage 2b)."""
+        stage 2b).
+
+        A chain's CIGAR is the reference's ``append_cigar`` of each gap's
+        CIGAR and then of the next anchor's ``M`` run, done in one pass
+        over arrays: an appended CIGAR's first op merges into the op before
+        it where the two are the same op, and no other op merges.  So a
+        DP's trailing ``I`` and a big gap's ``I`` stay two ops, and a big
+        gap's zero-length indel stays in the CIGAR and keeps the next
+        anchor's ``M`` from merging."""
         if aligner is None:
             aligner = default_aligner()
-        all_gaps: list[tuple[int, int, int, int]] = []
-        spans: list[tuple[int, int]] = []
-        for anchors in guides:
-            start = len(all_gaps)
-            pq = pr = plen = 0
-            for gi, (q, r, ln) in enumerate(anchors):
-                if gi:
-                    qpe, rpe = pq + plen, pr + plen
-                    assert qpe <= q and rpe <= r
-                    all_gaps.append((qpe, q, rpe, r))
-                pq, pr, plen = q, r, ln
-            spans.append((start, len(all_gaps)))
-        all_cigars = _batch_gap_cigars(qstr, rstr, all_gaps, aligner)
+        q, r, ln = anchors[:, :3].T.astype(np.int64)
+        starts = np.asarray(starts, dtype=np.int64)
+        m = len(q)
+        if not m:
+            return []
+        # every anchor but a chain's first has a gap before it
+        lead = np.zeros(m, dtype=bool)
+        lead[starts[:-1]] = True
+        gi = np.flatnonzero(~lead)
+        qpe, rpe = q[gi - 1] + ln[gi - 1], r[gi - 1] + ln[gi - 1]
+        qgap, rgap = q[gi] - qpe, r[gi] - rpe
+        assert (np.minimum(qgap, rgap) >= 0).all()
+        dp, big, jobs = _gap_jobs(qstr, rstr, qpe, rpe, qgap, rgap)
+        cigars = aligner.align_batch(jobs) if jobs else []
+
+        # the ops, in order: each anchor's block is the gap before it (its
+        # DP's ops and a big gap's indel, or one one-sided indel), then
+        # its M run; ``head`` marks the first op of each appended CIGAR
+        side = ~dp & ((qgap > 0) | (rgap > 0))
+        ndp = np.fromiter(map(len, cigars), dtype=np.int64,
+                          count=len(cigars))
+        gcnt = side.astype(np.int64)
+        gcnt[dp] = ndp + big[dp]
+        end = np.ones(m, dtype=np.int64)
+        end[gi] += gcnt
+        np.cumsum(end, out=end)
+        total = int(end[-1])
+        ops = np.empty(total, dtype=np.uint8)
+        lens = np.empty(total, dtype=np.int32)
+        head = np.zeros(total, dtype=bool)
+        ops[end - 1] = _M
+        lens[end - 1] = ln
+        head[end - 1] = True
+        go = end[gi - 1]  # each gap's first op
+        head[go[gcnt > 0]] = True
+        gs = go[side]
+        ops[gs] = np.where(qgap[side] > 0, _D, _I)
+        lens[gs] = qgap[side] + rgap[side]
+        if cigars:
+            flat = list(itertools.chain.from_iterable(cigars))
+            if flat:
+                fops, flens = zip(*flat)
+                first = np.cumsum(ndp) - ndp
+                pos = (np.repeat(go[dp] - first, ndp)
+                       + np.arange(len(flat), dtype=np.int64))
+                ops[pos] = np.frombuffer("".join(fops).encode("ascii"),
+                                         dtype=np.uint8)
+                lens[pos] = flens
+            bq, br = qgap[big], rgap[big]
+            pos = go[big] + ndp[big[dp]]
+            ops[pos] = np.where(bq <= br, _I, _D)
+            lens[pos] = np.abs(bq - br)
+
+        # junction merges: a head op joins the op before it where both are
+        # the same op (a merge keeps the op, so "the op before" is the
+        # previous flat op); a chain's first M opens its CIGAR
+        new = ~head
+        new[1:] |= ops[1:] != ops[:-1]
+        new[0] = True
+        new[end[lead] - 1] = True
+        run = np.flatnonzero(new)
+        rops = ops[run]
+        rlens = np.add.reduceat(lens, run, dtype=np.int32)
+        rb = np.searchsorted(run, end[starts[:-1]] - 1).tolist() + [len(run)]
+        ops_s = rops.tobytes().decode("ascii")
+        lens_l = rlens.tolist()
+        last = starts[1:] - 1
 
         out: list[Alignment] = []
-        for anchors, (gs, ge) in zip(guides, spans):
+        for qs, qe, rs, re_, a, b in zip(
+                q[starts[:-1]].tolist(), (q[last] + ln[last]).tolist(),
+                r[starts[:-1]].tolist(), (r[last] + ln[last]).tolist(),
+                rb, rb[1:]):
             al = cls()
-            if not anchors:
-                out.append(al)
-                continue
-            q0, r0, l0 = anchors[0]
-            al.start_a, al.end_a = q0, q0 + l0
-            al.start_b, al.end_b = r0, r0 + l0
-            al.a = qstr[al.start_a:al.end_a]
-            al.b = rstr[al.start_b:al.end_b]
-            al.cigar = [("M", l0)]
-            pq, pr, plen = q0, r0, l0
-            for (q, r, ln), gc in zip(anchors[1:], all_cigars[gs:ge]):
-                qpe, rpe = pq + plen, pr + plen
-                al.end_a = q + ln
-                al.end_b = r + ln
-                al.a += qstr[qpe:q + ln]
-                al.b += rstr[rpe:r + ln]
-                al.append_cigar(gc)
-                al.append_cigar([("M", ln)])
-                pq, pr, plen = q, r, ln
-            al.populate()
+            al.start_a, al.end_a = qs, qe
+            al.start_b, al.end_b = rs, re_
+            al.a = qstr[qs:qe]
+            al.b = rstr[rs:re_]
+            al.cigar = list(zip(ops_s[a:b], lens_l[a:b]))
+            al._populate(rops[a:b], rlens[a:b])
             out.append(al)
         return out
 
@@ -337,6 +389,17 @@ class Alignment:
 
     def populate(self) -> None:
         """Rebuild gapped strings and error tallies (align.cc:274-315)."""
+        self._populate(
+            np.frombuffer("".join(op for op, _ in self.cigar).encode("ascii"),
+                          dtype=np.uint8),
+            np.array([ln for _, ln in self.cigar], dtype=np.int32))
+
+    def _populate(self, ops: np.ndarray, lens: np.ndarray) -> None:
+        """:meth:`populate` from the CIGAR as arrays: its ops' codes
+        (uint8) and lengths (int32)."""
+        gap = ops != _M
+        self._gaps = int(gap.sum())
+        self._gap_bases = int(lens[gap].sum())
         try:
             from ..native import lib as _native
         except Exception:  # pragma: no cover
@@ -345,36 +408,27 @@ class Alignment:
             # one native pass (parity-tested vs the numpy path below —
             # the per-op numpy slicing + string codecs cost ~0.4 ms per
             # dense region, measured r5)
-            ops = np.frombuffer(
-                "".join(op for op, _ in self.cigar).encode("ascii"),
-                dtype=np.uint8)
-            lens = np.array([ln for _, ln in self.cigar],
-                            dtype=np.int32)
             ga, gb, mid, m, mm = _native.populate(
-                self.a.encode("ascii"), self.b.encode("ascii"), ops,
-                lens)
+                self.a.encode("ascii"), self.b.encode("ascii"), ops, lens)
             self.align_a = ga.decode("ascii")
             self.align_b = gb.decode("ascii")
             self.alignment = mid.decode("ascii")
             self._matches = m
             self._mismatches = mm
-            self._gaps = sum(1 for op, ln in self.cigar if op != "M")
-            self._gap_bases = sum(ln for op, ln in self.cigar
-                                  if op != "M")
             return
         a_arr = np.frombuffer(self.a.encode("ascii"), dtype=np.uint8)
         b_arr = np.frombuffer(self.b.encode("ascii"), dtype=np.uint8)
-        total = sum(ln for _, ln in self.cigar)
+        total = int(lens.sum())
         ga = np.empty(total, dtype=np.uint8)
         gb = np.empty(total, dtype=np.uint8)
         ia = ib = pos = 0
-        for op, ln in self.cigar:
-            if op == "M":
+        for op, ln in zip(ops.tolist(), lens.tolist()):
+            if op == _M:
                 ga[pos:pos + ln] = a_arr[ia:ia + ln]
                 gb[pos:pos + ln] = b_arr[ib:ib + ln]
                 ia += ln
                 ib += ln
-            elif op == "D":
+            elif op == _D:
                 ga[pos:pos + ln] = a_arr[ia:ia + ln]
                 gb[pos:pos + ln] = _DASH
                 ia += ln
@@ -391,8 +445,6 @@ class Alignment:
         both = (ga != _DASH) & (gb != _DASH)
         self._matches = int((both & eq).sum())
         self._mismatches = int((both & ~eq).sum())
-        self._gaps = sum(1 for op, ln in self.cigar if op != "M")
-        self._gap_bases = sum(ln for op, ln in self.cigar if op != "M")
 
     # -- getters (align.h:78-92) -------------------------------------------
 

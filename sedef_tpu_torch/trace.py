@@ -19,8 +19,9 @@ lock, added to once per batch of work, never per element.  A named
 instance registers itself, and :func:`snapshot` gathers every registered
 instance: the seed funnel (``ops/filter.COUNTERS``), the prefilter's
 (``ops/prefilter.STATS``), the gap-DP router's (``ops/wavefront.GAPDP``),
-the coalescing aligner's rounds (``ops/wavefront.COALESCE``) and the
-spans dropped past the cap (``DROPPED``).
+the coalescing aligner's rounds (``ops/wavefront.COALESCE``), the region
+path's routes, anchors and gaps (``models/aligner.REGION``) and the spans
+dropped past the cap (``DROPPED``).
 
     from sedef_tpu_torch import trace
     trace.reset(); trace.enable()

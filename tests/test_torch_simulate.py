@@ -140,6 +140,41 @@ def test_native_region_matches_python_path(monkeypatch, seed):
         assert nat == py == ref_py, i
 
 
+@pytest.mark.skipif(not native.has("fast_align"),
+                    reason="native lib not built")
+@pytest.mark.parametrize("seed, n, err", [
+    (21, 20000, 10), (22, 38000, 20), (23, 52000, 30), (25, 50000, 15),
+    (26, 55000, 10), (27, 40000, 25)])
+def test_native_region_matches_python_path_at_size(monkeypatch, seed, n, err):
+    """pairs-rand's regime: a 20-55 Kbp region at 10-30% divergence (at
+    most 15 points of it SNPs and 1 bp indels, the rest large indels), with
+    700-2,500 anchors and hundreds of gap DPs.  The
+    port's native region core, its Python region path (every gap DP on
+    the native host DP) and the reference's Python region path give the
+    same hits and CIGARs."""
+    from sedef_tpu_torch.ops.anchors import generate_anchors
+    rng = random.Random(seed)
+    al = wf.WavefrontAligner(device="cpu")
+    al.DEVICE_BATCH_MIN = 1 << 30
+    ref_al = RefAligner(use_tpu=False)
+    q = sim.rand_seq(rng, n)
+    small = min(15, err)
+    r = sim.make_large(rng, sim.make_small(rng, q, small), err - small)
+    assert len(generate_anchors(q, r, False, 0, 0, 11)) > 700
+    orig = Hit(SeqRef("A", False, len(q)), 0, len(q),
+               SeqRef("B", False, len(r)), 0, len(r))
+    ref_orig = RefHit(RefSeqRef("A", False, len(q)), 0, len(q),
+                      RefSeqRef("B", False, len(r)), 0, len(r))
+    monkeypatch.setenv("SEDEF_NATIVE_REGION", "0")
+    py = _rows(fast_align(q, r, orig, 11, aligner=al), orig)
+    ref_py = _rows(ref_fast_align(q, r, ref_orig, 11, aligner=ref_al),
+                   ref_orig)
+    monkeypatch.setenv("SEDEF_NATIVE_REGION", "1")
+    nat = _rows(fast_align(q, r, orig, 11, aligner=al), orig)
+    assert py
+    assert nat == py == ref_py
+
+
 def test_generators_match_reference():
     """The mutators and the coverage helpers, call for call."""
     for seed in range(4):

@@ -3,8 +3,8 @@ default and free of records then, parents and roots on and across pool
 threads, self time, the cap, and the one counter class behind the seed
 funnel, the prefilter's and the gap-DP router's counts; then the spans and
 counters on the paths they time: a pair through ``classify_pair``, an
-``align_batch`` by route, and a genome through the CLI's ``pipeline
---trace`` on two threads."""
+``align_batch`` by route, a region's counts by route, and a genome through
+the CLI's ``pipeline --trace`` on two threads."""
 
 import json
 import random
@@ -314,6 +314,54 @@ def test_decode_runs_count_the_card_cigars_runs():
     assert len(spans["gapdp.card.decode"]) == al.device_batches == 2
     assert all(s["parent"] == spans["gapdp.card"][0]["id"]
                for s in spans["gapdp.card.decode"])
+
+
+def test_region_counters_count_routes_anchors_chains_and_gaps(monkeypatch):
+    """One small region with random flanks on each route: the ``region``
+    counters are in the snapshot; on the Python route ``anchors`` is the
+    scan's row count (every row lands in the chains' path), ``chained``
+    the rows of the chains kept, and ``gaps`` the gaps their alignments
+    plan, one fewer than a chain's rows."""
+    from sedef_tpu_torch.io.bed import Hit, SeqRef
+    from sedef_tpu_torch.models import aligner as region
+    from sedef_tpu_torch.ops import cigar
+    from sedef_tpu_torch.ops.anchors import generate_anchors
+    from sedef_tpu_torch.ops.chain import chain_anchors
+    rng = random.Random(11)
+    s1, s2, _ = sim.generate_random_sd(rng, 10, min_len=2000, max_len=3000)
+    q = sim.rand_seq(rng, 1500) + s1 + sim.rand_seq(rng, 1500)
+    r = sim.rand_seq(rng, 1500) + s2 + sim.rand_seq(rng, 1500)
+    orig = Hit(SeqRef("A", False, len(q)), 0, len(q),
+               SeqRef("B", False, len(r)), 0, len(r))
+    planned, stitched = [], []
+    gap_jobs, many = cigar._gap_jobs, cigar.Alignment.from_anchors_many
+
+    def record_gaps(qstr, rstr, qpe, *rest):
+        planned.append(len(qpe))
+        return gap_jobs(qstr, rstr, qpe, *rest)
+
+    def record_chains(qstr, rstr, rows, starts, al=None):
+        stitched.append((len(rows), len(starts) - 1))
+        return many(qstr, rstr, rows, starts, al)
+
+    monkeypatch.setattr(cigar, "_gap_jobs", record_gaps)
+    monkeypatch.setattr(cigar.Alignment, "from_anchors_many", record_chains)
+    al = wf.WavefrontAligner(device="cpu")
+    monkeypatch.setenv("SEDEF_NATIVE_REGION", "0")
+    hits = region.fast_align(q, r, orig, 11, aligner=al)
+    c = trace.snapshot()["counters"]["region"]
+    rows = generate_anchors(q, r, False, 0, 0, 11)
+    path, _ = chain_anchors(rows)
+    (chained, chains), = stitched
+    assert hits and chains >= 1
+    assert c["python"] == 1 and c["native"] == 0
+    assert c["anchors"] == len(rows) == len(path)
+    assert c["chained"] == chained and c["anchors"] > c["chained"] > 0
+    assert c["gaps"] == planned[0] == chained - chains
+    monkeypatch.setenv("SEDEF_NATIVE_REGION", "1")
+    region.fast_align(q, r, orig, 11, aligner=al)
+    c2 = trace.snapshot()["counters"]["region"]
+    assert c2 == dict(c, native=1)
 
 
 def test_launch_groups_hold_three_numbers_a_class():
