@@ -76,11 +76,7 @@ line):
    launches, uploads, pulls and bytes (``PrefilterSplit``); every launch
    of the per-interval kernel (``csrc/prefilter_intervals.cu``) in the
    prefilter runs against its plain version on the same tensors, the
-   largest timed; the plain version's rows of e2e-20M (query sketches,
-   span rows, composition rows) through the three per-row kernels
-   (``csrc/window_sketches.cu``, ``csrc/window_ideals.cu``, on no path
-   now) against its outputs, and one full batch of sketches (131,072 rows
-   x SQ 160), timed; compute-sanitizer's memcheck and racecheck of the
+   largest timed; compute-sanitizer's memcheck and racecheck of the
    per-interval kernel on a small plan, where the tool runs on the card;
    one ``run_pipeline(jobs=1)`` of e2e-20M under the prefilter gates
    ``devcal.apply`` installs, beds equal to the host route's, its
@@ -126,7 +122,8 @@ line):
    the same card and host; no kernel summary and no result line); with
    ``--prefilter-split``: phases 1 and 2 and 5c's whole-job runs and
    calibrated-gates run alone, their walls and prefilter host split, no
-   check beyond seeds equal (copied into another checkout, it times that
+   check beyond seeds equal (copied into another checkout whose package
+   binds its kernels through ``native/kernels.py``, it times that
    checkout's prefilter).
 
 Each kernel's bound in the summary is the larger of its integer operations
@@ -304,8 +301,8 @@ def phase_device():
 
 
 def phase_build():
+    from sedef_tpu_torch.native import kernels
     from sedef_tpu_torch.native.build import build_cuda, build_native
-    from sedef_tpu_torch.ops import wavefront as wf
     # g++ and the nvcc compiles (one per source) run side by side
     from concurrent.futures import ThreadPoolExecutor
     took, compiler = {}, {}
@@ -324,7 +321,7 @@ def phase_build():
                                                log=compiler))]
         for job in jobs:
             job.result()
-    wf._kernels()
+    kernels.library()
     log(f"[build] native {took['native']:.2f}s cuda {took['cuda']:.2f}s, "
         f"together {time.perf_counter() - t0:.2f}s")
     _roll_ptxas(compiler.get("roll_engine", ""))
@@ -1498,25 +1495,6 @@ def _op_costs():
     def nb(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    def window_sketches(q_keys, qws, qwe, lut, SQ):
-        B = qws.shape[0]
-        return (2 * _sort_ops(B, SQ) + 4 * B * SQ,
-                nb(q_keys, qws, qwe, lut) + B * SQ * 4 + B * 9, (B, SQ))
-
-    def span_intersections(r_keys, qk_all, sa, sb, SA, n_shift):
-        B, SQ = qk_all.shape
-        return (_sort_ops(B, SA) + _sort_ops(B, SQ + SA)
-                + SCAN_OPS * B * (SQ + SA),
-                nb(r_keys, qk_all, sa, sb) + B * 4, (B, SQ + SA))
-
-    def composition_ideals(r_keys, qk_all, s_all, a, b, iv_id, RW,
-                           n_shift):
-        N, SQ = a.shape[0], qk_all.shape[1]
-        return (_sort_ops(N, RW) + _sort_ops(N, SQ + RW)
-                + SCAN_OPS * N * (SQ + RW),
-                nb(r_keys, qk_all, s_all, a, b, iv_id) + N * 4,
-                (N, SQ + RW))
-
     def interval_verdicts(q_keys, r_keys, r_locs, limit_lut, plan, L, SQ, RW,
                           SA, n_shift, tile=None, out=None):
         # the plain version's passes: two sketch sorts a row, a span row a
@@ -1557,10 +1535,7 @@ def _op_costs():
         return (P * (2 * n * (2 * QG + 2) + 3 * QSZ),
                 nb(codes_a, codes_b) + 4 * P, (P, W))
 
-    return {"_window_sketches": window_sketches,
-            "_span_intersections": span_intersections,
-            "_composition_ideals": composition_ideals,
-            "_interval_verdicts": interval_verdicts,
+    return {"_interval_verdicts": interval_verdicts,
             "_device_index": device_index, "_roll_batch": roll_batch,
             "qgram_scores": qgram_scores}
 
@@ -1645,18 +1620,13 @@ class OpTimer:
 
 # stage 1's kernels: wrapper -> (its CUDA source, the device program it
 # replaces)
-SRC_ROLL = "sedef_tpu_torch/csrc/roll_engine.cu"
-SRC_IDEALS = "sedef_tpu_torch/csrc/window_ideals.cu"
 STAGE1_KERNELS = {
-    "_roll_batch": (SRC_ROLL, "sedef_tpu/ops/roll_engine.py:143"),
+    "_roll_batch": ("sedef_tpu_torch/csrc/roll_engine.cu",
+                    "sedef_tpu/ops/roll_engine.py:143"),
     # RollPrefilter.dispatch + collect's flow on the card: its three
     # programs and the host work between them
     "_interval_verdicts": ("sedef_tpu_torch/csrc/prefilter_intervals.cu",
                            "sedef_tpu/ops/prefilter.py:267"),
-    "_span_intersections": (SRC_IDEALS, "sedef_tpu/ops/prefilter.py:92"),
-    "_composition_ideals": (SRC_IDEALS, "sedef_tpu/ops/prefilter.py:118"),
-    "_window_sketches": ("sedef_tpu_torch/csrc/window_sketches.cu",
-                         "sedef_tpu/ops/prefilter.py:73"),
     "_device_index": ("sedef_tpu_torch/csrc/device_index.cu",
                       "sedef_tpu/ops/winnow_device.py:84"),
     # the mesh step's gate, checked on [entry] (c)'s path
@@ -1672,11 +1642,6 @@ STAGE1 = {name: {"launches": 0, "max_abs_err": 0, "compared": 0,
 STAGE1_PATHS = {name: [] for name in STAGE1_KERNELS}
 # the roll kernel's instantiations: registers and spills (ptxas)
 ROLL_PTXAS = {}
-# the per-row kernels of the prefilter, which no path launches: the
-# per-interval kernel runs their row code (csrc/window_rows.cuh); they are
-# held against their plain versions on the rows the plain version builds
-ROW_KERNELS = ("_window_sketches", "_span_intersections",
-               "_composition_ideals")
 
 
 def _stage1_wrappers():
@@ -1931,54 +1896,24 @@ def _interval_work(a, rec):
 RECORDED = ("_interval_verdicts",)
 
 
-class _RowSpy:
-    """The plain version's row functions wrapped while the block runs:
-    every call's arguments and output kept, by the per-row kernel they
-    stand for."""
-
-    def __enter__(self):
-        from sedef_tpu_torch.ops import prefilter as pf
-        self.pf, self.real, self.calls = pf, {}, {n: [] for n in ROW_KERNELS}
-        for name in ROW_KERNELS:
-            real = self.real[name] = getattr(pf, name + "_torch")
-
-            def spy(*a, _n=name, _f=real, **kw):
-                out = _f(*a, **kw)
-                self.calls[_n].append((a, kw, out))
-                return out
-            setattr(pf, name + "_torch", spy)
-        return self
-
-    def __exit__(self, *exc):
-        for name, real in self.real.items():
-            setattr(self.pf, name + "_torch", real)
-
-
-def _check_interval_calls(timer, rows=False):
+def _check_interval_calls(timer):
     """Every ``_interval_verdicts`` call of a run against its plain
-    version on the same CUDA tensors, the largest timed against it.  With
-    ``rows``: the plain version's row-function calls of that run (its
-    query sketches, span rows and composition rows) through the three
-    per-row kernels, each against the plain version's output, the largest
-    call of each timed.  Returns calls checked and the spans' shape."""
-    import contextlib
-
+    version on the same CUDA tensors, the largest timed against it.
+    Returns calls checked and the spans' shape."""
     import torch
 
     from sedef_tpu_torch.ops import prefilter as pf
     name = "_interval_verdicts"
     calls = timer.calls.get(name, [])
     spans, b_spans = [], []
-    spy = _RowSpy() if rows else contextlib.nullcontext()
-    with spy:
-        for a, kw, out in calls:
-            want = pf._interval_verdicts_torch(*a, **kw)
-            _compare(name, (out,), (want,))
-            plan = a[4].long()
-            end = torch.searchsorted(a[2].long(), plan[2] + plan[4] + kw["L"])
-            span_n = (end - plan[3]).clamp(min=0)
-            spans.append(span_n)
-            b_spans.append(span_n[want[:, 1] > 0])
+    for a, kw, out in calls:
+        want = pf._interval_verdicts_torch(*a, **kw)
+        _compare(name, (out,), (want,))
+        plan = a[4].long()
+        end = torch.searchsorted(a[2].long(), plan[2] + plan[4] + kw["L"])
+        span_n = (end - plan[3]).clamp(min=0)
+        spans.append(span_n)
+        b_spans.append(span_n[want[:, 1] > 0])
     done = {name: len(calls)}
     if calls:
         a, kw, out = max(calls, key=lambda c: c[0][4].shape[1])
@@ -1988,19 +1923,6 @@ def _check_interval_calls(timer, rows=False):
                                 pf._interval_verdicts_torch, a, kw,
                                 f"{a[4].shape[1]} intervals, "
                                 f"{int(out[:, 1].sum())} composition rows")
-    for row_name, row_calls in (spy.calls.items() if rows else ()):
-        kernel = getattr(pf, row_name)
-        for a, kw, out in row_calls:
-            got = kernel(*a, **kw)
-            _compare(row_name, got if isinstance(got, tuple) else (got,),
-                     out if isinstance(out, tuple) else (out,))
-        done[row_name] = len(row_calls)
-        if row_calls and row_name != "_window_sketches":
-            a, kw, _ = max(row_calls, key=lambda c: c[0][3].shape[0])
-            if a[3].shape[0] >= STAGE1[row_name].get("rows", 0):
-                STAGE1[row_name]["rows"] = a[3].shape[0]
-                _time_against_plain(row_name, kernel, spy.real[row_name], a,
-                                    kw, f"{a[3].shape[0]} rows")
     calls.clear()
     return done, _quantiles(spans), _quantiles(b_spans)
 
@@ -2096,25 +2018,27 @@ def _stage1_index(fr, names, k, w, timer):
 class PrefilterSplit:
     """The host's time in the prefilter's dispatches while the block runs,
     split by what it does, each part's own time (its callees' taken out):
-    plan (the native search plan, every planned pair), upload (``_upload``
+    plan (the native search plan, every planned pair), upload (``upload``
     calls), launch (calls of the kernel wrappers), pull (copies to the
     host, and waits on the card's events, inside dispatch and collect),
     host rows (``_dispatch_compositions`` where a tree has it: the event
     rows and their bounds on the host), dispatch (the rest of
     ``RollPrefilter.dispatch``) and verdicts (the rest of
     ``PendingPrefilter.collect``); uploads, pulls and their bytes.  It
-    wraps names that a tree may lack, so that it times any checkout's
+    wraps names that a tree may lack, so that it times another checkout's
     prefilter (``--prefilter-split``)."""
 
     def __init__(self):
         import torch
 
+        from sedef_tpu_torch.native import kernels
         from sedef_tpu_torch.native import lib as native
         from sedef_tpu_torch.ops import prefilter as pf
         self.targets = [(native, "search_plan", "plan"),
                         (pf.RollPrefilter, "dispatch", "dispatch"),
                         (pf.PendingPrefilter, "collect", "verdicts"),
-                        (pf, "_upload", "upload"), (pf, "_pull", "pull"),
+                        (kernels, "upload", "upload"),
+                        (kernels, "pull", "pull"),
                         (torch.Tensor, "cpu", "pull"),
                         (torch.cuda.Event, "synchronize", "pull"),
                         (pf.RollPrefilter, "_dispatch_compositions", "rows")]
@@ -2159,7 +2083,7 @@ class PrefilterSplit:
                         self.stack[-1][1] += dt
                 if _cat == "upload":
                     self.bytes["upload"] += 4 * np.asarray(a[0]).size
-                elif _name in ("cpu", "_pull"):
+                elif _name in ("cpu", "pull"):
                     t = out if _name == "cpu" else a[0]
                     self.bytes["pull"] += t.numel() * t.element_size()
                     self.pulls += 1
@@ -2204,23 +2128,24 @@ class PrefilterSplit:
 class RollSplit:
     """The roll engine's calls while the block runs (``RollEngine.run``):
     a call's host ms (its wall, the wait on the card included) and its
-    parts, each its own time: upload (``_upload``), launch
-    (``_roll_batch``), pull (``_pull`` and the wait on its event); each
+    parts, each its own time: upload (``upload``), launch
+    (``_roll_batch``), pull (``pull`` and the wait on its event); each
     call's launches, uploads and pulls, their bytes, and the kernel's ms
     summed over the calls: CUDA events recorded just around the kernel's
-    launch call (``_launch``), so that the wrapper's host work before it
+    launch call (``launch``), so that the wrapper's host work before it
     stays out (the ctypes call and ``cudaLaunchKernel`` stay in, when the
     stream is idle).  ``read``'s ``one_each``: every
     call that rolled an interval on the card made one upload, one launch
     and one pull (a call whose intervals are all past the ladder makes
     none).  It wraps names that a tree may lack, so that
-    ``--prefilter-split`` runs in any checkout."""
+    ``--prefilter-split`` runs in another checkout."""
 
     COUNTS = ("launches", "uploads", "pulls")
 
     def __init__(self):
+        from sedef_tpu_torch.native import kernels
         from sedef_tpu_torch.ops import roll_engine as re_
-        self.re_ = re_
+        self.re_, self.kernels = re_, kernels
         self.ms = dict.fromkeys(("call", "upload", "launch", "pull"), 0.0)
         self.bytes = {"upload": 0, "pull": 0}
         self.calls = []  # per call: [intervals, launches, uploads, pulls]
@@ -2229,10 +2154,11 @@ class RollSplit:
     def __enter__(self):
         import numpy as np
         import torch
-        re_ = self.re_
-        targets = [(re_.RollEngine, "run", "call"), (re_, "_upload", "upload"),
-                   (re_, "_pull", "pull"), (re_, "_roll_batch", "launch"),
-                   (re_, "_launch", "kernel"),
+        re_, kernels = self.re_, self.kernels
+        targets = [(re_.RollEngine, "run", "call"),
+                   (kernels, "upload", "upload"), (kernels, "pull", "pull"),
+                   (re_, "_roll_batch", "launch"),
+                   (kernels, "launch", "kernel"),
                    (torch.cuda.Event, "synchronize", "pull")]
         targets = [t for t in targets if hasattr(t[0], t[1])]
         self.saved = [(obj, name, obj.__dict__.get(name))
@@ -2255,10 +2181,10 @@ class RollSplit:
                     e1.record()
                     self.events.append((e0, e1))
                     return out
-                elif _name == "_upload":
+                elif _name == "upload":
                     self.calls[-1][2] += 1
                     self.bytes["upload"] += 4 * np.asarray(a[0]).size
-                elif _name == "_pull":
+                elif _name == "pull":
                     self.calls[-1][3] += 1
                     self.bytes["pull"] += a[0].numel() * a[0].element_size()
                 t0 = time.perf_counter()
@@ -2331,13 +2257,12 @@ def _split_line(name, sp) -> str:
             f"interval's span) {json.dumps(sp['spans'])}")
 
 
-def _stage1_whole_job(fr, bins, name, timer, rows=False):
+def _stage1_whole_job(fr, bins, name, timer):
     """search_stage(jobs=1), the whole-job path, on the card with the
     prefilter forced on and then with the roll engine forced on, each
     against the host route: seeds.bed byte-identical.  The prefilter run's
     host time is split (``PrefilterSplit``) and its kernel calls are
-    checked against their plain version afterwards (``rows``: the plain
-    version's rows through the per-row kernels too).  ``timer`` None: the
+    checked against their plain version afterwards.  ``timer`` None: the
     walls and the split alone (``--prefilter-split``)."""
     import contextlib
     from sedef_tpu_torch.config import DEFAULT
@@ -2390,7 +2315,7 @@ def _stage1_whole_job(fr, bins, name, timer, rows=False):
             log(_split_line(name, sp))
             checked = "not checked"
             if timer:
-                checked, spans, b_spans = _check_interval_calls(timer, rows)
+                checked, spans, b_spans = _check_interval_calls(timer)
                 log(f"[stage1] spans {name}: minimizers a span over all "
                     f"planned intervals {json.dumps(spans)}; over the "
                     f"intervals phase B ran on {json.dumps(b_spans)} (tile "
@@ -2421,41 +2346,6 @@ def _stage1_whole_job(fr, bins, name, timer, rows=False):
             out["roll"] = {"wall_card_s": wall_dev, "launches": path.counts,
                            "split": sp}
     return out
-
-
-def _sketch_batch(qh, k):
-    """One full batch of query-window sketches, ``ROW_BATCH`` rows at SQ
-    160 (the windows of ``qh``'s self plan, repeated), the kernel against
-    its plain version, timed."""
-    import numpy as np
-    import torch
-
-    from sedef_tpu_torch.config import DEFAULT
-    from sedef_tpu_torch.native import lib as native
-    from sedef_tpu_torch.ops import prefilter as pf
-    from sedef_tpu_torch.ops.stat_model import relaxed_jaccard_table
-
-    def T(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
-
-    win, _ = native.search_plan(qh, qh, True, DEFAULT)
-    rows = np.resize(np.repeat(np.arange(len(win)), win[:, 3]),
-                     pf.ROW_BATCH)
-    dk, _ = qh.device_arrays("cuda")
-    args = (dk, T(win[rows, 1]), T(win[rows, 2]),
-            T(relaxed_jaccard_table(320, k, DEFAULT)))
-    k_ms, p_ms = _time_against_plain(
-        "_window_sketches", pf._window_sketches, pf._window_sketches_torch,
-        args, dict(SQ=pf.DEFAULT_SQ),
-        f"{pf.ROW_BATCH} rows x SQ {pf.DEFAULT_SQ}")
-    span = (args[2] - args[1]).clamp(min=0).float()
-    log(f"[stage1] sketch kernel (csrc/window_sketches.cu), one batch of "
-        f"{pf.ROW_BATCH} rows x SQ {pf.DEFAULT_SQ} (the self plan's query "
-        f"windows, {float(span.mean()):.1f} keys a window on average, "
-        f"{int((span > pf.DEFAULT_SQ).sum())} past SQ): {k_ms:.3f} ms (CUDA "
-        f"events, median of 3) against the plain version's {p_ms:.3f} ms "
-        f"on the card, outputs equal")
-    return {"ms": k_ms, "plain_ms": p_ms}
 
 
 def _stage1_gates(genomes, host, tmp, checks=True):
@@ -2827,8 +2717,7 @@ def phase_stage1(genomes, host, tmp, dense_fa):
     bins = generate_translation(fr)
     names = [c for b in bins for c in b]
     summary["index"] = _stage1_index(fr, names, k, w, timer)
-    summary["e2e-20M"] = _stage1_whole_job(fr, bins, "e2e-20M", timer,
-                                           rows=True)
+    summary["e2e-20M"] = _stage1_whole_job(fr, bins, "e2e-20M", timer)
     ops = timer.read()  # the e2e-20M whole-job runs' ops
     frm = FastaReference(genomes["mosaic-20M"][0])
     summary["mosaic-20M"] = _stage1_whole_job(
@@ -2840,7 +2729,6 @@ def phase_stage1(genomes, host, tmp, dense_fa):
     ops["dense roll"] = roll_timer.read().get("_roll_batch")
     seq = fr.get_sequence(names[0])
     qh = MinimizerIndex(PackedSeq(names[0], seq), k, w)
-    summary["sketch_kernel"] = _sketch_batch(qh, k)
     summary["roll_kernel"] = _roll_kernel_checks(qh, len(seq), k, w)
     summary["ops"] = ops
     for name, o in ops.items():
@@ -2848,8 +2736,7 @@ def phase_stage1(genomes, host, tmp, dense_fa):
             f"(CUDA events), bound {o['bound_ms']:.4f} ms by "
             f"{o['bound_by']}, largest rows shape {o['shape']}")
     summary["sanitizer"] = _sanitize_interval_kernel()
-    missing = [n for n, paths in STAGE1_PATHS.items()
-               if not paths and n not in ROW_KERNELS]
+    missing = [n for n, paths in STAGE1_PATHS.items() if not paths]
     if missing:
         raise AssertionError(f"stage 1's paths launched no {missing}")
     unheld = [n for n, rec in STAGE1.items() if not rec["compared"]]
@@ -3019,9 +2906,9 @@ def prefilter_split() -> int:
     whole-job stage 1 on the host route, with the prefilter forced on
     (its host time split) and with the roll engine forced on, and the
     calibrated-gates run, with no check beyond seeds equal to the host
-    route's: the prefilter's host split of any checkout whose package sits
-    beside this script (copy the script into a checkout and run it
-    there)."""
+    route's: the prefilter's host split of the checkout whose package
+    sits beside this script (copy the script into a checkout whose
+    package has ``native/kernels.py`` and run it there)."""
     from sedef_tpu_torch.io.fasta import FastaReference, generate_translation
     phase_device()
     phase_build()
@@ -3057,7 +2944,7 @@ DENSE_RECORDED = {"seeds": 69_674, "aligned": 16_923, "final": 16_922}
 
 class _LaunchEvents:
     """CUDA events on the launching stream around every kernel launch of
-    the wrappers (``wf._launch`` wrapped while the block runs, no
+    the wrappers (``kernels.launch`` wrapped while the block runs, no
     profiler): ``ms()`` gives {wrapper: (summed event-bracketed ms,
     launches)}."""
 
@@ -3072,8 +2959,8 @@ class _LaunchEvents:
 
         import torch
 
-        from sedef_tpu_torch.ops import wavefront as wf
-        self.wf, self.launch = wf, wf._launch
+        from sedef_tpu_torch.native import kernels
+        self.kernels, self.launch = kernels, kernels.launch
         self.lock, self.events = threading.Lock(), []
 
         def timed(wrapper, dev, fn, *args):
@@ -3085,11 +2972,11 @@ class _LaunchEvents:
             end.record(stream)
             with self.lock:
                 self.events.append((wrapper.__name__, start, end))
-        wf._launch = timed
+        kernels.launch = timed
         return self
 
     def __exit__(self, *exc):
-        self.wf._launch = self.launch
+        self.kernels.launch = self.launch
 
     def ms(self) -> dict:
         import torch
@@ -3355,15 +3242,13 @@ def main() -> int:
                 "calibration_launches": calibration[name],
                 "dense_launches": dense_launches[name],
                 **summary[name]} for name, (src, ref) in KERNELS.items()]
-    # stage 1's: launches on stage 1's paths ([stage1] lines); the per-row
-    # kernels are on none (ROW_KERNELS), held on the plain version's rows
+    # stage 1's: launches on stage 1's paths ([stage1] lines)
     kernels += [{"name": name, "route": "cuda", "source": src,
                  "replaces": ref, **{key: STAGE1[name][key] for key in (
                      "launches", "main_path_launches", "max_abs_err", "ms",
                      "plain_ms", "bound_ms", "bound_by", "library_ms", "at",
                      "bound_formula_ms")},
                  "paths": STAGE1_PATHS[name],
-                 "on_path": name not in ROW_KERNELS,
                  **({"ptxas": ROLL_PTXAS, **{
                      key: v for key, v in STAGE1[name].items()
                      if key.startswith("ns_per_")}}

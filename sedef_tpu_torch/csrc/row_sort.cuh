@@ -1,9 +1,9 @@
 // Row primitives of stage 1's kernels, for a group of threads that is
 // either one warp (THREADS 32) or a whole block: a barrier, a sum, an
 // exclusive prefix sum in thread order, and an ascending bitonic sort of a
-// row in shared memory.  Included by csrc/window_ideals.cu,
-// csrc/window_sketches.cu, csrc/roll_engine.cu, csrc/device_index.cu and
-// csrc/qgram.cu; each of them gets its own copy (an unnamed namespace).
+// row in shared memory.  Included by csrc/window_rows.cuh (and so by
+// csrc/prefilter_intervals.cu), csrc/roll_engine.cu, csrc/device_index.cu
+// and csrc/qgram.cu; each of them gets its own copy (an unnamed namespace).
 
 #pragma once
 

@@ -1,9 +1,7 @@
-// Row code of the roll prefilter's kernels: a query window's sketch built
+// Row code of the roll prefilter's kernel: a query window's sketch built
 // by one warp, the ideal count of a sorted window row against a sketch,
 // and a warp's lower bound over sorted loci.  Included by
-// csrc/window_sketches.cu and csrc/window_ideals.cu (the per-row kernels)
-// and csrc/prefilter_intervals.cu (an interval a block), so that the three
-// run one piece of code.
+// csrc/prefilter_intervals.cu (an interval a block).
 
 #pragma once
 

@@ -15,9 +15,9 @@ not counted, sliding.cc:86), making its value path-dependent on insertion
 order — and that drift is one-sided (missed increments only), so the
 ideal bounds the reference's counter from above.  This is the core
 reduction of the stage-1 roll prefilter
-(ops/prefilter.py::_composition_ideals): intervals whose maximum ideal
-over all window compositions is below the relaxed Jaccard cutoff are
-proven to fail the gate and never rolled on the host.
+(ops/prefilter.py::_composition_ideals_torch): intervals whose maximum
+ideal over all window compositions is below the relaxed Jaccard cutoff
+are proven to fail the gate and never rolled on the host.
 """
 
 from __future__ import annotations

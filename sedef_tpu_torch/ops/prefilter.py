@@ -59,22 +59,21 @@ on the card) and one pull of an (n, 2) record; no event row, window
 bound or ideal goes through the host.  Its plain version,
 ``_interval_verdicts_torch``, runs the three row functions below
 (``_window_sketches_torch``, ``_span_intersections_torch``,
-``_composition_ideals_torch``) over rows built with torch ops.  The
-three row functions keep their own kernels (``csrc/window_sketches.cu``,
-``csrc/window_ideals.cu``), the counterparts of the reference's three
-jit programs; the per-interval kernel runs their row code
-(``csrc/window_rows.cuh``).
+``_composition_ideals_torch``, the counterparts of the reference's three
+jit programs) over rows built with torch ops; the kernel builds the
+sketches and window rows with the row code of ``csrc/window_rows.cuh``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from .. import trace
+from ..native import kernels
 from .jaccard_batch import merge_rank_intersection
-from .wavefront import (_check, _kernels, _launch, _ptr, _pull, _same_device,
-                        _upload)
 
 INF32 = 2**31 - 1
 
@@ -110,8 +109,8 @@ def _gather(keys: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _window_sketches_torch(q_keys, qws, qwe, limit_lut, SQ: int):
-    """``_window_sketches``' plain version.  Per-interval sorted distinct
-    query-window keys + relaxed limit.
+    """Per-interval sorted distinct query-window keys + relaxed limit
+    (the reference's ``_window_sketches``).
 
     Returns (qk (B, SQ) int32 INF-padded ascending, s (B,) int32, limit
     (B,) int32, ovf (B,) bool)."""
@@ -128,36 +127,6 @@ def _window_sketches_torch(q_keys, qws, qwe, limit_lut, SQ: int):
     return qk, s, limit, (qwe - qws) > SQ
 
 
-def _window_sketches(q_keys, qws, qwe, limit_lut, SQ: int):
-    """The per-interval query sketches, as ``_window_sketches_torch``: on
-    CUDA tensors one launch of ``csrc/window_sketches.cu`` on the current
-    stream (no synchronisation), on CPU tensors the plain version."""
-    dev = _same_device(q_keys, qws, qwe, limit_lut)
-    if dev.type == "cpu":
-        return _window_sketches_torch(q_keys, qws, qwe, limit_lut, SQ)
-    for name, t in (("q_keys", q_keys), ("qws", qws), ("qwe", qwe),
-                    ("limit_lut", limit_lut)):
-        _check(t, torch.int32, 1, name)
-    B = qws.shape[0]
-    if qwe.shape[0] != B:
-        raise ValueError("qws and qwe must have one length")
-    if q_keys.shape[0] < 1 or limit_lut.shape[0] < 1:
-        raise ValueError("empty query keys or limit table")
-    if not 1 <= SQ <= 1024:
-        raise ValueError(f"SQ {SQ} is not in [1, 1024]")
-    qk = torch.empty((B, SQ), dtype=torch.int32, device=dev)
-    s = torch.empty(B, dtype=torch.int32, device=dev)
-    limit = torch.empty(B, dtype=torch.int32, device=dev)
-    ovf = torch.empty(B, dtype=torch.bool, device=dev)
-    if B:
-        _launch(KERNEL_WRAPPERS[2], dev, _kernels().sedef_window_sketches,
-                q_keys.data_ptr(), qws.data_ptr(), qwe.data_ptr(),
-                limit_lut.data_ptr(), qk.data_ptr(), s.data_ptr(),
-                limit.data_ptr(), ovf.data_ptr(), B, q_keys.shape[0],
-                limit_lut.shape[0], SQ)
-    return qk, s, limit, ovf
-
-
 def _window_keys(r_keys, a, b, width: int, n_shift: int):
     """(N, width) int32: each row's ref keys [a, b) in locus order, HAS_N
     keys and the lanes past b as INF, sorted ascending."""
@@ -170,8 +139,8 @@ def _window_keys(r_keys, a, b, width: int, n_shift: int):
 
 def _span_intersections_torch(r_keys, qk_all, sa, sb, SA: int,
                               n_shift: int):
-    """``_span_intersections``'s plain version.  Phase A: plain
-    distinct-intersection bound per interval.
+    """Phase A: plain distinct-intersection bound per interval (the
+    reference's ``_span_intersections``).
 
     For any window W inside an interval's span, ideal(Q, R_W) <=
     |Q ∩ R_W| <= |Q ∩ R_span| — so one row per INTERVAL (vs one per
@@ -190,8 +159,8 @@ def _span_intersections_torch(r_keys, qk_all, sa, sb, SA: int,
 
 def _composition_ideals_torch(r_keys, qk_all, s_all, a, b, iv_id,
                               RW: int, n_shift: int):
-    """``_composition_ideals``'s plain version.  Ideal sketch intersection
-    for one batch of composition rows.
+    """Ideal sketch intersection for one batch of composition rows (the
+    reference's ``_composition_ideals``).
 
     a/b (N,) int32: each window's [a, b) minimizer range in locus order
     (computed on the host); iv_id (N,) int32 interval index into
@@ -203,63 +172,6 @@ def _composition_ideals_torch(r_keys, qk_all, s_all, a, b, iv_id,
     # collapse inside the reduction, so no separate dedup pass is needed
     ideal = merge_rank_intersection(qk_all[iv], keys_w, s_all[iv])
     return torch.where((b - a) > RW, INF32, ideal)
-
-
-def _window_ideals(wrapper, r_keys, qk_all, s_all, a, b, iv_id,
-                   width: int, s_const: int, n_shift: int):
-    """One launch of ``csrc/window_ideals.cu`` on the current stream (no
-    synchronisation), counted on ``wrapper``: per row, the shared keys of
-    rank < s between the ref keys [a, b) (HAS_N dropped) and its query
-    row (row iv_id, or the row's own where iv_id is None; s from s_all, or
-    ``s_const`` where s_all is None); INF32 where b - a > width."""
-    named = [("r_keys", r_keys, 1), ("qk_all", qk_all, 2), ("a", a, 1),
-             ("b", b, 1), ("s_all", s_all, 1), ("iv_id", iv_id, 1)]
-    for name, t, nd in named:
-        if t is not None:
-            _check(t, torch.int32, nd, name)
-    dev = _same_device(*[t for _, t, _ in named if t is not None])
-    N = a.shape[0]
-    if b.shape[0] != N or (iv_id is not None and iv_id.shape[0] != N):
-        raise ValueError("a, b and iv_id must have one length")
-    if iv_id is None and qk_all.shape[0] != N:
-        raise ValueError("rows must align with qk_all")
-    if r_keys.shape[0] < 1 or qk_all.shape[1] < 1:
-        raise ValueError("empty ref keys or query rows")
-    if not 1 <= width <= 4096:
-        raise ValueError(f"width {width} is not in [1, 4096]")
-    out = torch.empty(N, dtype=torch.int32, device=dev)
-    if N:
-        _launch(wrapper, dev, _kernels().sedef_window_ideals,
-                r_keys.data_ptr(), qk_all.data_ptr(), _ptr(s_all),
-                a.data_ptr(), b.data_ptr(), _ptr(iv_id), out.data_ptr(), N,
-                r_keys.shape[0], qk_all.shape[1], width, s_const, n_shift)
-    return out
-
-
-def _span_intersections(r_keys, qk_all, sa, sb, SA: int, n_shift: int):
-    """Phase A's span bounds, as ``_span_intersections_torch``: on CUDA
-    tensors one launch of ``csrc/window_ideals.cu`` (a block a row), on CPU
-    tensors the plain version."""
-    dev = _same_device(r_keys, qk_all, sa, sb)
-    if dev.type == "cpu":
-        return _span_intersections_torch(r_keys, qk_all, sa, sb, SA,
-                                         n_shift)
-    # rank condition disabled (s = the row width): plain intersection
-    return _window_ideals(KERNEL_WRAPPERS[0], r_keys, qk_all, None, sa, sb,
-                          None, SA, qk_all.shape[1] + SA, n_shift)
-
-
-def _composition_ideals(r_keys, qk_all, s_all, a, b, iv_id,
-                        RW: int, n_shift: int):
-    """Phase B's composition ideals, as ``_composition_ideals_torch``: on
-    CUDA tensors one launch of ``csrc/window_ideals.cu`` (a warp a row), on
-    CPU tensors the plain version."""
-    dev = _same_device(r_keys, qk_all, s_all, a, b, iv_id)
-    if dev.type == "cpu":
-        return _composition_ideals_torch(r_keys, qk_all, s_all, a, b,
-                                         iv_id, RW, n_shift)
-    return _window_ideals(KERNEL_WRAPPERS[1], r_keys, qk_all, s_all, a, b,
-                          iv_id, RW, 0, n_shift)
 
 
 def _composition_windows(locs, t0, t1, rws0, span_n, surv, L: int):
@@ -337,6 +249,11 @@ def _interval_verdicts_torch(q_keys, r_keys, r_locs, limit_lut, plan,
     return torch.stack([verdict.to(torch.int32), rows], dim=1)
 
 
+# csrc/prefilter_intervals.cu's entry point and its C signature
+_INTERVALS_C = ("sedef_prefilter_intervals", [ctypes.c_void_p] * 6
+                + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+
+
 def _interval_verdicts(q_keys, r_keys, r_locs, limit_lut, plan, L: int,
                        SQ: int, RW: int, SA: int, n_shift: int,
                        tile: int = INTERVAL_TILE):
@@ -346,14 +263,14 @@ def _interval_verdicts(q_keys, r_keys, r_locs, limit_lut, plan, L: int,
     (no synchronisation), on CPU tensors the plain version.  The plan's
     columns are not negative and rws0 <= len(r_locs) (the native plan's
     rws0 is the first locus >= t0)."""
-    dev = _same_device(q_keys, r_keys, r_locs, limit_lut, plan)
+    dev = kernels.same_device(q_keys, r_keys, r_locs, limit_lut, plan)
     if dev.type == "cpu":
         return _interval_verdicts_torch(q_keys, r_keys, r_locs, limit_lut,
                                         plan, L, SQ, RW, SA, n_shift)
     for name, t, nd in (("q_keys", q_keys, 1), ("r_keys", r_keys, 1),
                         ("r_locs", r_locs, 1), ("limit_lut", limit_lut, 1),
                         ("plan", plan, 2)):
-        _check(t, torch.int32, nd, name)
+        kernels.check(t, torch.int32, nd, name)
     if plan.shape[0] != 5:
         raise ValueError("plan must hold the five columns qws, qwe, t0, "
                          "rws0, n_steps")
@@ -368,21 +285,20 @@ def _interval_verdicts(q_keys, r_keys, r_locs, limit_lut, plan, L: int,
     n = plan.shape[1]
     rec = torch.empty((n, 2), dtype=torch.int32, device=dev)
     if n:
-        _launch(KERNEL_WRAPPERS[3], dev, _kernels().sedef_prefilter_intervals,
-                q_keys.data_ptr(), r_keys.data_ptr(), r_locs.data_ptr(),
-                limit_lut.data_ptr(), plan.data_ptr(), rec.data_ptr(), n,
-                q_keys.shape[0], r_keys.shape[0], limit_lut.shape[0], SQ,
-                RW, SA, L, n_shift, tile)
+        kernels.launch(KERNEL_WRAPPERS[0], dev,
+                       kernels.function(*_INTERVALS_C), q_keys.data_ptr(),
+                       r_keys.data_ptr(), r_locs.data_ptr(),
+                       limit_lut.data_ptr(), plan.data_ptr(), rec.data_ptr(),
+                       n, q_keys.shape[0], r_keys.shape[0],
+                       limit_lut.shape[0], SQ, RW, SA, L, n_shift, tile)
     return rec
 
 
-# the wrappers that launch this module's kernels, with their launch counts;
+# the wrapper that launches this module's kernel, with its launch count;
 # counted through this tuple, so that a caller that wraps the module's
-# functions (chip_smoke.py's op timer) leaves the counts alone
-KERNEL_WRAPPERS = (_span_intersections, _composition_ideals,
-                   _window_sketches, _interval_verdicts)
-for _w in KERNEL_WRAPPERS:
-    _w.launches = 0
+# ``_interval_verdicts`` (chip_smoke.py's op timer) leaves the count alone
+KERNEL_WRAPPERS = (_interval_verdicts,)
+_interval_verdicts.launches = 0
 
 
 class PendingPrefilter:
@@ -428,7 +344,7 @@ class RollPrefilter:
             raise ValueError("packed int32 keys need 2k+2 <= 30 (k <= 14)")
         self.n_shift = 2 * kmer_size
         self.device = torch.device(device)
-        self.limit_lut = _upload(limit_lut, self.device)
+        self.limit_lut = kernels.upload(limit_lut, self.device)
         self.L = int(init_len)
         self.SQ = SQ
         self.RW = RW
@@ -460,9 +376,9 @@ class RollPrefilter:
         if ((cols < 0).any() or int(cols[2].max() + cols[4].max())
                 + self.L >= 2**31 or int(cols[3].max()) > r_locs.shape[0]):
             raise ValueError("plan columns out of the int32 plan's range")
-        plan = _upload(cols, self.device)
+        plan = kernels.upload(cols, self.device)
         rec = _interval_verdicts(q_keys, r_keys, r_locs, self.limit_lut,
                                  plan, L=self.L, SQ=self.SQ, RW=self.RW,
                                  SA=self.SA, n_shift=self.n_shift)
-        rec, done = _pull(rec)
+        rec, done = kernels.pull(rec)
         return PendingPrefilter(n, bj, bs, ok, rec, done)

@@ -41,12 +41,13 @@ class.  Intervals longer than the last T class roll on the host.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from .. import trace
-from .wavefront import (_check, _kernels, _launch, _pull, _same_device,
-                        _upload)
+from ..native import kernels
 
 INF32 = 2**31 - 1
 INT32_MIN = -2**31
@@ -248,6 +249,11 @@ def _roll_batch_torch(r_keys, r_locs, nr: int, limit_lut,
     return best_j, best_steps, ok
 
 
+# csrc/roll_engine.cu's entry point and its C signature
+_ROLL_BATCH_C = ("sedef_roll_batch", [ctypes.c_void_p] * 14
+                 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+
+
 def _roll_batch(r_keys, r_locs, nr: int, limit_lut,
                 q_keys, qws, qwe, t0, rws0, init_cnt, n_steps, re0,
                 W: int, SQ: int, INIT_PAD: int, T_PAD: int, n_shift: int,
@@ -261,7 +267,7 @@ def _roll_batch(r_keys, r_locs, nr: int, limit_lut,
     outputs' tensors to write (``_roll_record``), returned."""
     cols = (qws, qwe, t0, rws0, init_cnt, n_steps, re0)
     arrays = (r_keys, r_locs, q_keys, limit_lut)
-    dev = _same_device(*arrays, *cols)
+    dev = kernels.same_device(*arrays, *cols)
     if dev.type == "cpu":
         got = _roll_batch_torch(r_keys, r_locs, nr, limit_lut, q_keys,
                                 *cols, W=W, SQ=SQ, INIT_PAD=INIT_PAD,
@@ -275,7 +281,7 @@ def _roll_batch(r_keys, r_locs, nr: int, limit_lut,
     for name, t in zip(("r_keys", "r_locs", "q_keys", "limit_lut", "qws",
                         "qwe", "t0", "rws0", "init_cnt", "n_steps", "re0"),
                        arrays + cols):
-        _check(t, torch.int32, 1, name)
+        kernels.check(t, torch.int32, 1, name)
     B = qws.shape[0]
     if any(c.shape[0] != B for c in cols):
         raise ValueError("the plan columns must have one length")
@@ -287,13 +293,13 @@ def _roll_batch(r_keys, r_locs, nr: int, limit_lut,
         raise ValueError(f"the row (W={W}) must hold the query's SQ={SQ}")
     best_j, best_steps, ok = _roll_record(B, dev)[1] if out is None else out
     if B:
-        lib = _kernels()
-        _launch(KERNEL_WRAPPERS[0], dev, lib.sedef_roll_batch,
-                *(t.data_ptr() for t in arrays + cols),
-                best_j.data_ptr(), best_steps.data_ptr(), ok.data_ptr(), B,
-                r_keys.shape[0], r_locs.shape[0], q_keys.shape[0],
-                limit_lut.shape[0], int(nr), W, SQ, INIT_PAD, T_PAD,
-                n_shift)
+        kernels.launch(KERNEL_WRAPPERS[0], dev,
+                       kernels.function(*_ROLL_BATCH_C),
+                       *(t.data_ptr() for t in arrays + cols),
+                       best_j.data_ptr(), best_steps.data_ptr(),
+                       ok.data_ptr(), B, r_keys.shape[0], r_locs.shape[0],
+                       q_keys.shape[0], limit_lut.shape[0], int(nr), W, SQ,
+                       INIT_PAD, T_PAD, n_shift)
     return best_j, best_steps, ok
 
 
@@ -391,15 +397,15 @@ class RollEngine:
             return best_j, best_steps, ok
         dev = r_keys.device
         nl = len(self.limit_lut)
-        buf = _upload(np.concatenate([self.limit_lut,
-                                      plan[:, order].ravel()]), dev)
+        buf = kernels.upload(np.concatenate([self.limit_lut,
+                                             plan[:, order].ravel()]), dev)
         rec, out = _roll_record(m, dev)
         _roll_batch(r_keys, r_locs, nr, buf[:nl], q_keys,
                     *buf[nl:].view(7, m).unbind(0), W=self.W, SQ=self.SQ,
                     INIT_PAD=self.INIT_PAD, T_PAD=T_PAD_LADDER[-1],
                     n_shift=self.n_shift, init_max=int(plan[4, order].max()),
                     steps_max=int(plan[5, order[0]]), out=out)
-        host, done = _pull(rec)
+        host, done = kernels.pull(rec)
         if done is not None:
             with trace.span("seed.wait"):
                 done.synchronize()

@@ -56,6 +56,7 @@ import torch
 
 from .. import trace
 from ..config import DEFAULT, Config
+from ..native import kernels
 from .dna import WILDCARD, encode_align
 
 NEG_INF = -(1 << 30)
@@ -460,88 +461,31 @@ def tile_backtrack_torch(p_tile: torch.Tensor, ql: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # CUDA kernels (csrc/*.cu), built at first use and bound through ctypes
+# (native/kernels.py)
 # ---------------------------------------------------------------------------
 
-_KLIB = None
-_KLOCK = threading.Lock()
-_COUNT_LOCK = threading.Lock()
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+# the C signatures of the gap-DP kernels' entry points
+_ENTRY_POINTS = {
+    "sedef_fill_warp": [_VP] * 3 + [_CI] * 8 + [_VP],
+    "sedef_fill_owned": [_VP] * 3 + [_CI] * 8 + [_VP],
+    "sedef_fill_cluster": [_VP] * 3 + [_CI] * 14 + [_VP],
+    "sedef_fill_streamed": [_VP] * 3 + [_CI] * 14 + [_VP],
+    "sedef_tile_ckpt": [_VP] * 3 + [_CI] * 14 + [_VP],
+    "sedef_tile_refill": [_VP] * 4 + [_CI] * 15 + [_VP],
+    "sedef_tile_cluster_occupancy": [_CI] * 7 + [ctypes.POINTER(_CI)],
+    "sedef_walk": [_VP] * 5 + [_CI] * 11 + [_VP],
+}
 
 
-def _kernels():
-    """The compiled kernel library; built once per process, under a lock
-    (align_stage calls the aligner from a thread pool)."""
-    global _KLIB
-    if _KLIB is None:
-        with _KLOCK:
-            if _KLIB is None:
-                from ..native.build import build_cuda
-                lib = ctypes.CDLL(str(build_cuda()))
-                vp, ci = ctypes.c_void_p, ctypes.c_int
-                sigs = {
-                    "sedef_fill_warp": [vp] * 3 + [ci] * 8 + [vp],
-                    "sedef_fill_owned": [vp] * 3 + [ci] * 8 + [vp],
-                    "sedef_fill_cluster": [vp] * 3 + [ci] * 14 + [vp],
-                    "sedef_fill_streamed": [vp] * 3 + [ci] * 14 + [vp],
-                    "sedef_tile_ckpt": [vp] * 3 + [ci] * 14 + [vp],
-                    "sedef_tile_refill": [vp] * 4 + [ci] * 15 + [vp],
-                    "sedef_tile_cluster_occupancy": (
-                        [ci] * 7 + [ctypes.POINTER(ci)]),
-                    "sedef_walk": [vp] * 5 + [ci] * 11 + [vp],
-                    "sedef_fill_variant": ([ctypes.c_char_p] + [vp] * 3
-                                           + [ci] * 8 + [vp]),
-                    "sedef_fill_variant_clusters": (
-                        [ctypes.c_char_p] + [ci] * 2 + [ctypes.POINTER(ci)]),
-                    # stage 1's engines (ops/roll_engine.py, prefilter.py,
-                    # winnow_device.py) and the mesh step's gate
-                    # (parallel/mesh.py)
-                    "sedef_roll_batch": [vp] * 14 + [ci] * 11 + [vp],
-                    "sedef_window_ideals": [vp] * 7 + [ci] * 6 + [vp],
-                    "sedef_window_sketches": [vp] * 8 + [ci] * 4 + [vp],
-                    "sedef_prefilter_intervals": [vp] * 6 + [ci] * 10 + [vp],
-                    "sedef_device_index": [vp] * 7 + [ci] * 7 + [vp],
-                    "sedef_qgram_scores": [vp] * 3 + [ci] * 2 + [vp],
-                }
-                for name, argtypes in sigs.items():
-                    fn = getattr(lib, name)
-                    fn.argtypes = argtypes
-                    fn.restype = ci
-                lib.sedef_fill_variant_name.argtypes = [ci]
-                lib.sedef_fill_variant_name.restype = ctypes.c_char_p
-                names = (lib.sedef_fill_variant_name(i)
-                         for i in range(len(FILL_VARIANTS) + 1))
-                built = tuple(n.decode() for n in names if n is not None)
-                if built != FILL_VARIANTS:
-                    raise RuntimeError(
-                        f"kernel library's fill variants {built} are not "
-                        f"FILL_VARIANTS {FILL_VARIANTS}")
-                _KLIB = lib
-    return _KLIB
-
-
-def _check(t: torch.Tensor, dtype: torch.dtype, ndim: int, name: str
-           ) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor")
-    if t.dtype != dtype or t.dim() != ndim:
-        raise ValueError(f"{name} must be a {ndim}-D {dtype} tensor, got "
-                         f"{t.dim()}-D {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {t.device}")
-
-
-def _same_device(*ts: torch.Tensor) -> torch.device:
-    dev = ts[0].device
-    if any(t.device != dev for t in ts[1:]):
-        raise ValueError("all tensor arguments must share one device")
-    return dev
+def _entry(name: str):
+    return kernels.function(name, _ENTRY_POINTS[name])
 
 
 def _check_codes(qseq, tgt, K: int) -> torch.device:
-    _check(qseq, torch.int8, 2, "qseq")
-    _check(tgt, torch.int8, 2, "tgt")
-    dev = _same_device(qseq, tgt)
+    kernels.check(qseq, torch.int8, 2, "qseq")
+    kernels.check(tgt, torch.int8, 2, "tgt")
+    dev = kernels.same_device(qseq, tgt)
     if qseq.shape[0] != tgt.shape[0]:
         raise ValueError("qseq and tgt must have the same batch size")
     if K < 1 or qseq.shape[0] % K:
@@ -565,48 +509,6 @@ def _threads(B: int, width: int) -> int:
     return min(1024 if B < 264 else 256, width)
 
 
-def _launch(wrapper, dev: torch.device, fn, *args) -> None:
-    """Launch on ``dev``'s current stream (no synchronisation), raise on a
-    CUDA error, and count the launch on ``wrapper``."""
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if torch.cuda.current_device() == dev.index:
-        rc = fn(*args, stream)
-    else:
-        with torch.cuda.device(dev):
-            rc = fn(*args, stream)
-    if rc:
-        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
-                           f"error {rc}")
-    with _COUNT_LOCK:
-        wrapper.launches += 1
-
-
-def _upload(a: np.ndarray, device) -> torch.Tensor:
-    """a as an int32 tensor on ``device``: on a card one copy from pinned
-    memory queued on the current stream (the host does not wait)."""
-    t = torch.from_numpy(np.ascontiguousarray(a, np.int32))
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
-
-
-def _pull(t: torch.Tensor):
-    """(t on the host, the CUDA event after its copy or None): on a card
-    one copy into pinned memory queued on the current stream; the host
-    reads it once the event has passed."""
-    if t.device.type != "cuda":
-        return t, None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(t.device))
-    return host, done
-
-
-def _ptr(t) -> int | None:
-    return t.data_ptr() if t is not None else None
-
-
 def wavefront_fill(qseq: torch.Tensor, tgt: torch.Tensor, match: int = 5,
                    mis: int = -4, gapo: int = 40, gape: int = 1, *,
                    plan: "FillPlan | None" = None) -> torch.Tensor:
@@ -628,18 +530,17 @@ def wavefront_fill(qseq: torch.Tensor, tgt: torch.Tensor, match: int = 5,
     if B == 0:
         return p
     plan = plan or fill_plan_on(dev, S_q, S_t, B)
-    lib = _kernels()
     codes = (qseq.data_ptr(), tgt.data_ptr(), p.data_ptr())
     score = (match, mis, gapo, gape)
     if plan.org == "warp":
-        _launch(wavefront_fill, dev, lib.sedef_fill_warp, *codes, B, S_q,
-                S_t, *score, plan.per_block)
+        kernels.launch(wavefront_fill, dev, _entry("sedef_fill_warp"),
+                       *codes, B, S_q, S_t, *score, plan.per_block)
     elif plan.org == "owned":
-        _launch(wavefront_fill, dev, lib.sedef_fill_owned, *codes, B, S_q,
-                S_t, *score, plan.N)
+        kernels.launch(wavefront_fill, dev, _entry("sedef_fill_owned"),
+                       *codes, B, S_q, S_t, *score, plan.N)
     else:
-        _launch(wavefront_fill, dev, lib.sedef_fill_cluster, *codes, B, 1,
-                S_q, S_t, *score, 0, *plan.tile)
+        kernels.launch(wavefront_fill, dev, _entry("sedef_fill_cluster"),
+                       *codes, B, 1, S_q, S_t, *score, 0, *plan.tile)
     return p
 
 
@@ -679,8 +580,8 @@ def dpx2_scoring_fits(match: int, mis: int, gapo: int, gape: int) -> bool:
             and max_sc + gapo < DPX2_LIMIT)
 
 
-def _check_variant_shape(variant: str, S_t: int, match: int, mis: int,
-                         gapo: int, gape: int) -> None:
+def check_variant_shape(variant: str, S_t: int, match: int, mis: int,
+                        gapo: int, gape: int) -> None:
     """``ValueError`` for a class or scoring ``variant`` does not take."""
     if variant == "base":
         return
@@ -717,6 +618,32 @@ def unpack_state_torch(word: torch.Tensor
     return word & 0xFF, ((word >> 8) & 0xFF) - 128, word >> 16
 
 
+# the variant kernel's entry points (csrc/wavefront_fill_variants.cu)
+_VARIANT_ENTRY_POINTS = {
+    "sedef_fill_variant": [ctypes.c_char_p] + [_VP] * 3 + [_CI] * 8 + [_VP],
+    "sedef_fill_variant_clusters": ([ctypes.c_char_p] + [_CI] * 2
+                                    + [ctypes.POINTER(_CI)]),
+}
+
+
+def _variant_entry(name: str):
+    """The variant kernel's entry point ``name``, once the library is
+    known to be built with the variants of ``FILL_VARIANTS``."""
+    _check_built_variants()
+    return kernels.function(name, _VARIANT_ENTRY_POINTS[name])
+
+
+@functools.cache
+def _check_built_variants() -> None:
+    name_of = kernels.function("sedef_fill_variant_name", [_CI],
+                               ctypes.c_char_p)
+    names = (name_of(i) for i in range(len(FILL_VARIANTS) + 1))
+    built = tuple(n.decode() for n in names if n is not None)
+    if built != FILL_VARIANTS:
+        raise RuntimeError(f"kernel library's fill variants {built} are not "
+                           f"FILL_VARIANTS {FILL_VARIANTS}")
+
+
 def wavefront_fill_variant(variant: str, qseq: torch.Tensor,
                            tgt: torch.Tensor, match: int = 5, mis: int = -4,
                            gapo: int = 40, gape: int = 1) -> torch.Tensor:
@@ -737,15 +664,16 @@ def wavefront_fill_variant(variant: str, qseq: torch.Tensor,
     dev = _check_codes(qseq, tgt, 1)
     B, S_q = qseq.shape
     S_t = tgt.shape[1]
-    _check_variant_shape(variant, S_t, match, mis, gapo, gape)
+    check_variant_shape(variant, S_t, match, mis, gapo, gape)
     if dev.type == "cpu":
         return wavefront_fill_torch(qseq, tgt, match, mis, gapo, gape)
     p = torch.empty((B, S_q + S_t - 1, S_t), dtype=torch.uint8, device=dev)
     if B:
-        _launch(wavefront_fill_variant, dev, _kernels().sedef_fill_variant,
-                variant.encode(), qseq.data_ptr(), tgt.data_ptr(),
-                p.data_ptr(), B, S_q, S_t, match, mis, gapo, gape,
-                _threads(B, min(S_q, S_t)))
+        kernels.launch(wavefront_fill_variant, dev,
+                       _variant_entry("sedef_fill_variant"),
+                       variant.encode(), qseq.data_ptr(), tgt.data_ptr(),
+                       p.data_ptr(), B, S_q, S_t, match, mis, gapo, gape,
+                       _threads(B, min(S_q, S_t)))
     return p
 
 
@@ -756,10 +684,10 @@ def fill_variant_clusters(variant: str, S_q: int, S_t: int,
     (``cudaOccupancyMaxActiveClusters``); 0: a launch would be refused."""
     if variant not in VARIANT_CLUSTER and variant != "dpx2reg":
         raise ValueError(f"{variant!r} is no chain of warps")
-    _check_variant_shape(variant, S_t, 5, -4, 40, 1)
+    check_variant_shape(variant, S_t, 5, -4, 40, 1)
     out = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        rc = _kernels().sedef_fill_variant_clusters(
+        rc = _variant_entry("sedef_fill_variant_clusters")(
             variant.encode(), S_q, S_t, ctypes.byref(out))
     if rc:
         raise RuntimeError(f"cluster occupancy query failed: CUDA error "
@@ -798,10 +726,11 @@ def wavefront_fill_streamed(qseq: torch.Tensor, tgt: torch.Tensor, K: int,
         return p
     plan = plan or stream_plan_on(dev, S_q, S_t, n, K)
     f = plan.fill
-    _launch(wavefront_fill_streamed, dev, _kernels().sedef_fill_streamed,
-            qseq.data_ptr(), tgt.data_ptr(), p.data_ptr(), n, K, S_q, S_t,
-            match, mis, gapo, gape, _STREAM_KERNELS[plan.org, f.org], f.C,
-            f.W, f.lanes, f.N, f.ring)
+    kernels.launch(wavefront_fill_streamed, dev,
+                   _entry("sedef_fill_streamed"), qseq.data_ptr(),
+                   tgt.data_ptr(), p.data_ptr(), n, K, S_q, S_t, match, mis,
+                   gapo, gape, _STREAM_KERNELS[plan.org, f.org], f.C, f.W,
+                   f.lanes, f.N, f.ring)
     return p
 
 
@@ -909,7 +838,7 @@ def tile_cluster_occupancy(plan: TilePlan, n_streams: int, mode: int,
     if key not in _OCCUPANCY:
         out = ctypes.c_int(0)
         with torch.cuda.device(dev):
-            rc = _kernels().sedef_tile_cluster_occupancy(
+            rc = _entry("sedef_tile_cluster_occupancy")(
                 int(mode), n_streams, *plan, ctypes.byref(out))
         _OCCUPANCY[key] = 0 if rc else out.value
     return _OCCUPANCY[key]
@@ -1181,9 +1110,9 @@ def _tile_ckpt(wrapper, qseq, tgt, K, tile, score, plan=None):
                        dtype=torch.int32, device=dev)
     if n:
         plan = plan or tile_plan_on(dev, S_t, n, False)
-        _launch(wrapper, dev, _kernels().sedef_tile_ckpt, qseq.data_ptr(),
-                tgt.data_ptr(), ckpt.data_ptr(), n, K, S_q, S_t, tile,
-                *score, *plan)
+        kernels.launch(wrapper, dev, _entry("sedef_tile_ckpt"),
+                       qseq.data_ptr(), tgt.data_ptr(), ckpt.data_ptr(), n,
+                       K, S_q, S_t, tile, *score, *plan)
     return ckpt
 
 
@@ -1215,8 +1144,8 @@ def tile_checkpoint_streamed(qseq: torch.Tensor, tgt: torch.Tensor, K: int,
 def _tile_refill(wrapper, qseq, tgt, ckpt, ti, K, tile, score, plan=None):
     dev = _check_codes(qseq, tgt, K)
     _check_tile(tile)
-    _check(ckpt, torch.int32, 4, "ckpt")
-    _same_device(qseq, ckpt)
+    kernels.check(ckpt, torch.int32, 4, "ckpt")
+    kernels.same_device(qseq, ckpt)
     B, S_q = qseq.shape
     S_t = tgt.shape[1]
     n = B // K
@@ -1230,9 +1159,10 @@ def _tile_refill(wrapper, qseq, tgt, ckpt, ti, K, tile, score, plan=None):
     p_tile = torch.empty((n, tile, S_t), dtype=torch.uint8, device=dev)
     if n:
         plan = plan or tile_plan_on(dev, S_t, n, True)
-        _launch(wrapper, dev, _kernels().sedef_tile_refill, qseq.data_ptr(),
-                tgt.data_ptr(), ckpt.data_ptr(), p_tile.data_ptr(), n, K,
-                S_q, S_t, tile, ti, *score, *plan)
+        kernels.launch(wrapper, dev, _entry("sedef_tile_refill"),
+                       qseq.data_ptr(), tgt.data_ptr(), ckpt.data_ptr(),
+                       p_tile.data_ptr(), n, K, S_q, S_t, tile, ti, *score,
+                       *plan)
     return p_tile
 
 
@@ -1323,12 +1253,12 @@ def _walk_plan_on(dev: torch.device, B: int) -> WalkPlan:
 
 
 def _check_walk(p, ql, tl, B: int) -> torch.device:
-    _check(p, torch.uint8, 3, "p")
-    _check(ql, torch.int32, 1, "ql")
-    _check(tl, torch.int32, 1, "tl")
+    kernels.check(p, torch.uint8, 3, "p")
+    kernels.check(ql, torch.int32, 1, "ql")
+    kernels.check(tl, torch.int32, 1, "tl")
     if ql.shape[0] != B or tl.shape[0] != B:
         raise ValueError("ql/tl must have one entry per problem")
-    return _same_device(p, ql, tl)
+    return kernels.same_device(p, ql, tl)
 
 
 def _walk(wrapper, dev, p, ql, tl, ws, out, K, S_q, r0, plan) -> None:
@@ -1338,10 +1268,10 @@ def _walk(wrapper, dev, p, ql, tl, ws, out, K, S_q, r0, plan) -> None:
     B = ql.shape[0]
     if plan is None:
         plan = _walk_plan_on(dev, B)
-    _launch(wrapper, dev, _kernels().sedef_walk, p.data_ptr(),
-            ql.data_ptr(), tl.data_ptr(), _ptr(ws), out.data_ptr(), B, K,
-            S_q, S_t, out.shape[1], r0, tile, plan.R, plan.pw,
-            int(plan.prefetch), plan.warps)
+    kernels.launch(wrapper, dev, _entry("sedef_walk"), p.data_ptr(),
+                   ql.data_ptr(), tl.data_ptr(), kernels.ptr(ws),
+                   out.data_ptr(), B, K, S_q, S_t, out.shape[1], r0, tile,
+                   plan.R, plan.pw, int(plan.prefetch), plan.warps)
 
 
 def backtrack_pack(p: torch.Tensor, ql: torch.Tensor, tl: torch.Tensor,
@@ -1378,9 +1308,9 @@ def _tile_backtrack(wrapper, p_tile, ql, tl, ws, out, r0, S_q, K, plan):
     B = n * K
     dev = _check_walk(p_tile, ql, tl, B)
     _check_tile(tile)
-    _check(ws, torch.int32, 2, "ws")
-    _check(out, torch.uint8, 2, "out")
-    _same_device(p_tile, ws, out)
+    kernels.check(ws, torch.int32, 2, "ws")
+    kernels.check(out, torch.uint8, 2, "out")
+    kernels.same_device(p_tile, ws, out)
     n_bytes = (S_q + S_t - 1 + 3) // 4
     if tuple(ws.shape) != (B, 3) or tuple(out.shape) != (B, n_bytes):
         raise ValueError("ws must be (B, 3) and out (B, ceil(n_diag / 4))")
@@ -1659,20 +1589,13 @@ class WavefrontAligner:
         return results
 
     def _align_native(self, native, pairs, idxs: list[int], results) -> None:
-        """The native scalar DP on the host."""
-        if native.has("align_batch"):
-            # one ctypes round trip for the whole small-DP set
-            sub = [(pairs[i][0].astype(np.uint8),
-                    pairs[i][1].astype(np.uint8)) for i in idxs]
-            for i, cig in zip(idxs, native.align_batch(
-                    sub, self.match, self.mis, self.gapo, self.gape)):
-                results[i] = cig
-        else:
-            for idx in idxs:
-                qc, tc = pairs[idx]
-                results[idx] = native.align(
-                    qc.astype(np.uint8), tc.astype(np.uint8),
-                    self.match, self.mis, self.gapo, self.gape)
+        """The native scalar DP on the host: one ctypes round trip for
+        the whole small-DP set."""
+        sub = [(pairs[i][0].astype(np.uint8), pairs[i][1].astype(np.uint8))
+               for i in idxs]
+        for i, cig in zip(idxs, native.align_batch(
+                sub, self.match, self.mis, self.gapo, self.gape)):
+            results[i] = cig
 
     def _align_device(self, pairs, idxs: list[int], results,
                       routes: dict[str, int]) -> None:

@@ -35,10 +35,12 @@ plain version, ``_device_index_torch``.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from .wavefront import _check, _kernels, _launch, _same_device
+from ..native import kernels
 from .winnow import STATUS_ALL_LOWERCASE, STATUS_HAS_N, STATUS_HAS_UPPERCASE
 
 INF32 = 2**31 - 1
@@ -142,17 +144,22 @@ _INDEX_TILE = 2048
 _INDEX_MAX_W = 1024
 
 
+# csrc/device_index.cu's entry point and its C signature
+_DEVICE_INDEX_C = ("sedef_device_index", [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+
+
 def _device_index(code: torch.Tensor, cls: torch.Tensor, nk_valid: int,
                   k: int, w: int, cap: int, drop: int = 0):
     """One segment's minimizers, as ``_device_index_torch``: on CUDA
     tensors one call of ``csrc/device_index.cu`` on the current stream
     (three launches, no synchronisation), on CPU tensors the plain
     version."""
-    dev = _same_device(code, cls)
+    dev = kernels.same_device(code, cls)
     if dev.type == "cpu":
         return _device_index_torch(code, cls, nk_valid, k, w, cap, drop)
-    _check(code, torch.uint8, 1, "code")
-    _check(cls, torch.uint8, 1, "cls")
+    kernels.check(code, torch.uint8, 1, "code")
+    kernels.check(cls, torch.uint8, 1, "cls")
     n = code.shape[0]
     if cls.shape[0] != n:
         raise ValueError("code and cls must have one length")
@@ -168,10 +175,12 @@ def _device_index(code: torch.Tensor, cls: torch.Tensor, nk_valid: int,
     count = torch.empty((), dtype=torch.int32, device=dev)
     locs = torch.empty(cap, dtype=torch.int32, device=dev)
     keys = torch.empty(cap, dtype=torch.int32, device=dev)
-    _launch(KERNEL_WRAPPERS[0], dev, _kernels().sedef_device_index,
-            code.data_ptr(), cls.data_ptr(), scratch.data_ptr(),
-            scratch[nb:].data_ptr(), count.data_ptr(), locs.data_ptr(),
-            keys.data_ptr(), n, int(nk_valid), k, w, cap, int(drop), nb)
+    kernels.launch(KERNEL_WRAPPERS[0], dev,
+                   kernels.function(*_DEVICE_INDEX_C), code.data_ptr(),
+                   cls.data_ptr(), scratch.data_ptr(),
+                   scratch[nb:].data_ptr(), count.data_ptr(),
+                   locs.data_ptr(), keys.data_ptr(), n, int(nk_valid), k, w,
+                   cap, int(drop), nb)
     return count, locs, keys
 
 

@@ -19,6 +19,7 @@ processes over cores via GNU Parallel with the filesystem as the collective
 
 from __future__ import annotations
 
+import ctypes
 import math
 from concurrent.futures import ThreadPoolExecutor
 
@@ -27,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import DEFAULT
+from ..native import kernels
 from ..ops import wavefront as wf
 from ..ops.filter import QG, QSZ
 
@@ -83,17 +85,22 @@ def qgram_scores_torch(codes_a: torch.Tensor, codes_b: torch.Tensor
                          hist(grams(codes_b))).sum(-1, dtype=torch.int32)
 
 
+# csrc/qgram.cu's entry point and its C signature
+_QGRAM_SCORES_C = ("sedef_qgram_scores", [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
 def qgram_scores(codes_a: torch.Tensor, codes_b: torch.Tensor
                  ) -> torch.Tensor:
     """The shared-q-gram counts of ``qgram_scores_torch``: on CUDA tensors
     one launch of ``csrc/qgram.cu`` on the current stream (a block a pair,
     no synchronisation), on CPU tensors the plain version."""
-    dev = wf._same_device(codes_a, codes_b)
+    dev = kernels.same_device(codes_a, codes_b)
     if dev.type == "cpu":
         return qgram_scores_torch(codes_a, codes_b)
     nd = codes_a.dim()
-    wf._check(codes_a, torch.uint8, nd, "codes_a")
-    wf._check(codes_b, torch.uint8, nd, "codes_b")
+    kernels.check(codes_a, torch.uint8, nd, "codes_a")
+    kernels.check(codes_b, torch.uint8, nd, "codes_b")
     if nd < 1 or codes_b.shape != codes_a.shape:
         raise ValueError("codes_a and codes_b must be windows of one shape")
     W = codes_a.shape[-1]
@@ -103,9 +110,9 @@ def qgram_scores(codes_a: torch.Tensor, codes_b: torch.Tensor
     lead = codes_a.shape[:-1]
     out = torch.empty(lead, dtype=torch.int32, device=dev)
     if out.numel():
-        wf._launch(KERNEL_WRAPPERS[0], dev, wf._kernels().sedef_qgram_scores,
-                   codes_a.data_ptr(), codes_b.data_ptr(), out.data_ptr(),
-                   out.numel(), W)
+        kernels.launch(KERNEL_WRAPPERS[0], dev,
+                       kernels.function(*_QGRAM_SCORES_C), codes_a.data_ptr(),
+                       codes_b.data_ptr(), out.data_ptr(), out.numel(), W)
     return out
 
 

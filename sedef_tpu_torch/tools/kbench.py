@@ -130,7 +130,7 @@ def random_codes(B: int, S_q: int, S_t: int, device, seed: int = 0):
 def variant_takes(variant: str, S_t: int) -> bool:
     """Whether ``variant`` takes class width S_t (default scoring)."""
     try:
-        wf._check_variant_shape(variant, S_t, 5, -4, 40, 1)
+        wf.check_variant_shape(variant, S_t, 5, -4, 40, 1)
     except ValueError:
         return False
     return True

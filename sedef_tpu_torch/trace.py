@@ -27,9 +27,7 @@ dropped past the cap (``DROPPED``).
     trace.reset(); trace.enable()
     ...                                  # the work to look into
     trace.disable()
-    snap = trace.snapshot()
-    trace.totals(snap)["gapdp.host"]     # seconds in the host's gap DPs
-    trace.self_totals(snap)["region"]    # the region path's own Python
+    snap = trace.snapshot()              # spans and counters, as dicts
 """
 
 from __future__ import annotations
@@ -240,46 +238,4 @@ def snapshot() -> dict:
     return {"clock": "perf_counter", "spans": spans,
             "counters": {name: c.snapshot()
                          for name, c in sorted(_REGISTRY.items())}}
-
-
-def _union(intervals: list[tuple[float, float]]) -> float:
-    total, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total
-
-
-def self_times(snap: dict) -> dict[int, float]:
-    """Each span's self time by id: its duration less the union of its
-    direct children's intervals (each clipped to the span)."""
-    kids: dict[int, list[tuple[float, float]]] = {}
-    by_id = {s["id"]: s for s in snap["spans"]}
-    for s in snap["spans"]:
-        p = by_id.get(s["parent"])
-        if p is not None:
-            a, b = max(s["t0"], p["t0"]), min(s["t1"], p["t1"])
-            if b > a:
-                kids.setdefault(p["id"], []).append((a, b))
-    return {sid: (s["t1"] - s["t0"]) - _union(kids.get(sid, []))
-            for sid, s in by_id.items()}
-
-
-def totals(snap: dict) -> dict[str, float]:
-    """Seconds summed over the spans of each name."""
-    out: dict[str, float] = {}
-    for s in snap["spans"]:
-        out[s["name"]] = out.get(s["name"], 0.0) + s["t1"] - s["t0"]
-    return out
-
-
-def self_totals(snap: dict) -> dict[str, float]:
-    """Self time (:func:`self_times`) summed over the spans of each
-    name."""
-    own = self_times(snap)
-    out: dict[str, float] = {}
-    for s in snap["spans"]:
-        out[s["name"]] = out.get(s["name"], 0.0) + own[s["id"]]
-    return out
 

@@ -813,51 +813,6 @@ def test_stage1_roll_merged_call_matches_plain(dev, W, SQ):
             qk, rk, rl, len(rh.keys), len(rh.seq), *cols)
 
 
-def test_stage1_window_ideals_kernel_matches_plain(dev):
-    from sedef_tpu_torch.config import DEFAULT
-    from sedef_tpu_torch.native import lib as native
-    from sedef_tpu_torch.ops import dna
-    from sedef_tpu_torch.ops import prefilter as pf
-    from sedef_tpu_torch.ops.index import MinimizerIndex
-    from sedef_tpu_torch.ops.stat_model import relaxed_jaccard_table
-    q, r = _stage1_pair(4)
-    qh = MinimizerIndex(dna.PackedSeq("q", q), 12, 16)
-    rh = MinimizerIndex(dna.PackedSeq("r", r), 12, 16)
-    win, iv = native.search_plan(qh, rh, False, DEFAULT)
-    woff = np.repeat(np.arange(len(win)), win[:, 3])
-    qk, _ = qh.device_arrays(dev)
-    rk, _ = rh.device_arrays(dev)
-    def T(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-
-    lut = T(relaxed_jaccard_table(320, 12, DEFAULT))
-    qk_all, s_all, _, _ = pf._window_sketches(qk, T(win[woff, 1]),
-                                              T(win[woff, 2]), lut, SQ=160)
-    L = DEFAULT.search.min_read_size
-    sa = iv[:, 2]
-    sb = np.searchsorted(rh.locs, iv[:, 0] + iv[:, 4] + L)
-    sb[::7] = sa[::7] + 1100  # past SA
-    n = len(sa)
-    iv_id = np.repeat(np.arange(n), 8)
-    a = np.repeat(sa, 8) + np.tile(np.arange(8), n)
-    b = np.searchsorted(rh.locs, rh.locs[np.minimum(a, len(rh.locs) - 1)]
-                        + L)
-    b[::37] = a[::37] + 300  # past RW
-    b[5::41] = a[5::41]      # empty
-    for fn, plain, args in (
-            (pf._span_intersections, pf._span_intersections_torch,
-             (rk, qk_all, T(sa), T(sb), 1024, 24)),
-            (pf._composition_ideals, pf._composition_ideals_torch,
-             (rk, qk_all, s_all, T(a), T(b), T(iv_id), 192, 24))):
-        before = fn.launches
-        got = fn(*args)
-        torch.cuda.synchronize()
-        assert fn.launches == before + 1
-        want = plain(*args)
-        assert got.dtype == want.dtype and torch.equal(got, want), fn
-        assert (want == pf.INF32).any() and (want > 0).any()
-
-
 def _interval_world(rng, n=4000, n_r=60_000, RW=192):
     """Ref loci with wide gaps (spans of no loci), keys from a small
     alphabet with HAS_N keys and duplicate runs, query keys sharing them,
@@ -933,36 +888,6 @@ def test_stage1_interval_kernel_matches_plain(dev, tile):
     assert seen.all()
 
 
-def test_stage1_window_sketches_kernel_matches_plain(dev):
-    """``csrc/window_sketches.cu`` against its plain version: plan-like
-    windows, empty ones, qwe < qws, windows past SQ and past the keys'
-    end, duplicate-heavy windows, at SQ 160 and 48, a short limit table."""
-    from sedef_tpu_torch.ops import prefilter as pf
-    rng = np.random.default_rng(12)
-    nq = 200_000
-    q_keys = rng.integers(0, 1 << 26, nq).astype(np.int32)
-    q_keys[1000:1300] = rng.integers(0, 5, 300)
-    qws = rng.integers(0, nq - 300, 20_000)
-    qwe = qws + rng.integers(-5, 200, 20_000)
-    qws = np.r_[qws, 1000, 1100, nq - 50, 5, 1000]
-    qwe = np.r_[qwe, 1170, 1100, nq + 40, 0, 1400]
-
-    def T(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-
-    for SQ, n_lut in ((160, 321), (48, 30)):
-        args = (T(q_keys), T(qws), T(qwe),
-                T(rng.integers(0, 100, n_lut)))
-        before = pf._window_sketches.launches
-        got = pf._window_sketches(*args, SQ=SQ)
-        torch.cuda.synchronize()
-        assert pf._window_sketches.launches == before + 1
-        want = pf._window_sketches_torch(*args, SQ=SQ)
-        for g, w in zip(got, want):
-            assert g.dtype == w.dtype and torch.equal(g, w)
-        assert want[3].any() and (want[1] == 0).any()
-
-
 def test_stage1_device_index_kernel_matches_plain(dev):
     """``csrc/device_index.cu`` against its plain version on one segment
     each: a first and a continuation segment of soft-masked sequence with
@@ -1018,9 +943,10 @@ def test_stage1_wrappers_reject_cpu_cuda_mix(dev):
     from sedef_tpu_torch.ops import winnow_device as wd
     from sedef_tpu_torch.parallel import mesh
     g = torch.zeros(64, dtype=torch.int32, device=dev)
-    c = torch.zeros(64, dtype=torch.int32)
+    plan = torch.zeros((5, 4), dtype=torch.int32)
     with pytest.raises(ValueError):
-        pf._window_sketches(g, g, c, g, SQ=160)
+        pf._interval_verdicts(g, g, g, g, plan, L=40, SQ=160, RW=192,
+                              SA=1024, n_shift=24)
     u8 = torch.zeros(64, dtype=torch.uint8)
     with pytest.raises(ValueError):
         wd._device_index(u8.to(dev), u8, 53, 12, 16, 8)

@@ -449,7 +449,7 @@ def test_width_over_the_block_limit_raises(variant, S_t):
                                          ("dpx2clu4", 16384), ("dpx2", 4096),
                                          ("clu4", 32)])
 def test_widest_and_narrowest_cluster_classes_are_taken(variant, S_t):
-    wf._check_variant_shape(variant, S_t, 5, -4, 40, 1)
+    wf.check_variant_shape(variant, S_t, 5, -4, 40, 1)
 
 
 @pytest.mark.parametrize("scoring", [(5, -4, 10950, 1),     # 32857

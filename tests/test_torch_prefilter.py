@@ -98,7 +98,7 @@ def test_phases_and_verdicts_match_reference(seed, rate):
     T = torch.from_numpy
 
     # per-interval query sketches
-    got = pf._window_sketches(T(qk), T(qws), T(qwe), T(lut), SQ=160)
+    got = pf._window_sketches_torch(T(qk), T(qws), T(qwe), T(lut), SQ=160)
     want = ref_pf._window_sketches(qk, qws, qwe, lut, SQ=160)
     for g, w in zip(got, want):
         _eq(g, w)
@@ -107,8 +107,8 @@ def test_phases_and_verdicts_match_reference(seed, rate):
     # phase A: span rows
     sa = rws0.astype(np.int32)
     sb = np.searchsorted(rh.locs, t0 + n_steps + L).astype(np.int32)
-    _eq(pf._span_intersections(T(rk), qk_all, T(sa), T(sb), SA=1024,
-                               n_shift=2 * K),
+    _eq(pf._span_intersections_torch(T(rk), qk_all, T(sa), T(sb), SA=1024,
+                                     n_shift=2 * K),
         ref_pf._span_intersections(rk, np.asarray(want[0]), sa, sb,
                                    SA=1024, n_shift=2 * K))
 
@@ -124,8 +124,8 @@ def test_phases_and_verdicts_match_reference(seed, rate):
     iv_id = np.concatenate([row_iv1, row_iv1, ivs]).astype(np.int32)
     a = np.searchsorted(rh.locs, rs).astype(np.int32)
     b = np.searchsorted(rh.locs, rs + L).astype(np.int32)
-    _eq(pf._composition_ideals(T(rk), qk_all, s_all, T(a), T(b), T(iv_id),
-                               RW=192, n_shift=2 * K),
+    _eq(pf._composition_ideals_torch(T(rk), qk_all, s_all, T(a), T(b),
+                                     T(iv_id), RW=192, n_shift=2 * K),
         ref_pf._composition_ideals(rk, np.asarray(want[0]),
                                    np.asarray(want[1]), a, b, iv_id,
                                    RW=192, n_shift=2 * K))
@@ -320,36 +320,32 @@ def _phase_inputs(seed, rate):
 
 
 @pytest.mark.parametrize("seed,rate", [(0, 0.12), (2, 0.22)])
-def test_window_ideal_wrappers_on_cpu_are_plain_and_reference(seed, rate):
-    """On CPU tensors ``_span_intersections`` and ``_composition_ideals``
-    are their plain versions and equal the reference's jitted ops, dtypes
-    included; no kernel is launched."""
+def test_window_ideal_plain_versions_match_reference(seed, rate):
+    """``_span_intersections_torch`` and ``_composition_ideals_torch``
+    equal the reference's jitted ops, dtypes included, on rows with
+    windows past RW and empty ones."""
     rk, qk_all, s_all, sa, sb, a, b, iv_id = _phase_inputs(seed, rate)
     T = torch.from_numpy
-    before = [w.launches for w in pf.KERNEL_WRAPPERS]
-    span = pf._span_intersections(T(rk), T(qk_all), T(sa), T(sb), SA=1024,
-                                  n_shift=2 * K)
-    assert torch.equal(span, pf._span_intersections_torch(
-        T(rk), T(qk_all), T(sa), T(sb), SA=1024, n_shift=2 * K))
+    span = pf._span_intersections_torch(T(rk), T(qk_all), T(sa), T(sb),
+                                        SA=1024, n_shift=2 * K)
     _eq(span, ref_pf._span_intersections(rk, qk_all, sa, sb, SA=1024,
                                          n_shift=2 * K))
-    comp = pf._composition_ideals(T(rk), T(qk_all), T(s_all), T(a), T(b),
-                                  T(iv_id), RW=192, n_shift=2 * K)
-    assert torch.equal(comp, pf._composition_ideals_torch(
-        T(rk), T(qk_all), T(s_all), T(a), T(b), T(iv_id), RW=192,
-        n_shift=2 * K))
+    comp = pf._composition_ideals_torch(T(rk), T(qk_all), T(s_all), T(a),
+                                        T(b), T(iv_id), RW=192,
+                                        n_shift=2 * K)
     _eq(comp, ref_pf._composition_ideals(rk, qk_all, s_all, a, b, iv_id,
                                          RW=192, n_shift=2 * K))
     assert (comp.numpy() == pf.INF32).any() and (comp.numpy() > 0).any()
-    assert [w.launches for w in pf.KERNEL_WRAPPERS] == before
 
 
 def window_ideals_model(rk, qk_all, s_all, a, b, iv_id, width, s_const,
                         n_shift):
-    """``csrc/window_ideals.cu`` row by row in NumPy: the range's keys
-    (HAS_N as INF) sorted, each distinct key's place in the query row by
-    binary search, a shared key's union rank = the query keys below it +
-    the ref-only distinct keys below it (an exclusive scan)."""
+    """The window rows' ideals as ``rank_count`` of
+    ``csrc/window_rows.cuh`` (which ``csrc/prefilter_intervals.cu`` runs)
+    counts them, row by row in NumPy: the range's keys (HAS_N as INF)
+    sorted, each distinct key's place in the query row by binary search, a
+    shared key's union rank = the query keys below it + the ref-only
+    distinct keys below it (an exclusive scan)."""
     out = np.empty(len(a), np.int32)
     for i in range(len(a)):
         if b[i] - a[i] > width:
@@ -372,8 +368,9 @@ def window_ideals_model(rk, qk_all, s_all, a, b, iv_id, width, s_const,
 
 @pytest.mark.parametrize("seed,rate", [(0, 0.12), (2, 0.22)])
 def test_window_ideals_model_matches_plain(seed, rate):
-    """The kernel's rank arithmetic against the plain versions' tagged
-    concat-sort, for both ops."""
+    """The rank arithmetic of ``csrc/window_rows.cuh``'s ``rank_count``
+    (the per-interval kernel's phase B) against the plain versions'
+    tagged concat-sort, for both row functions."""
     rk, qk_all, s_all, sa, sb, a, b, iv_id = _phase_inputs(seed, rate)
     T = torch.from_numpy
     np.testing.assert_array_equal(
@@ -406,42 +403,20 @@ def _sketch_inputs(seed):
 
 
 @pytest.mark.parametrize("seed,lut_len", [(0, 321), (1, 40)])
-def test_window_sketches_wrapper_on_cpu_is_plain_and_reference(seed,
-                                                               lut_len):
-    """On CPU tensors ``_window_sketches`` is its plain version and equals
-    the reference's jitted op, values and dtypes, on the edge windows of
-    ``_sketch_inputs`` (and a limit table shorter than SQ); no kernel is
-    launched."""
+def test_window_sketches_plain_version_matches_reference(seed, lut_len):
+    """``_window_sketches_torch`` equals the reference's jitted op, values
+    and dtypes, on the edge windows of ``_sketch_inputs`` (and a limit
+    table shorter than SQ)."""
     q_keys, qws, qwe = _sketch_inputs(seed)
     lut = relaxed_jaccard_table(lut_len - 1, K, DEFAULT).astype(np.int32)
     T = torch.from_numpy
-    before = [w.launches for w in pf.KERNEL_WRAPPERS]
-    got = pf._window_sketches(T(q_keys), T(qws), T(qwe), T(lut), SQ=160)
-    plain = pf._window_sketches_torch(T(q_keys), T(qws), T(qwe), T(lut),
-                                      SQ=160)
+    got = pf._window_sketches_torch(T(q_keys), T(qws), T(qwe), T(lut),
+                                    SQ=160)
     want = ref_pf._window_sketches(q_keys, qws, qwe, lut, SQ=160)
-    for g, p, w in zip(got, plain, want):
-        assert torch.equal(g, p)
+    for g, w in zip(got, want):
         _eq(g, w)
     s, ovf = got[1].numpy(), got[3].numpy()
     assert (s == 0).sum() >= 2 and ovf.sum() >= 2 and s.max() == 160
-    assert [w.launches for w in pf.KERNEL_WRAPPERS] == before
-
-
-def test_window_ideal_wrappers_refuse_other_devices():
-    m = torch.zeros(4, dtype=torch.int32, device="meta")
-    m2 = torch.zeros(4, 160, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError):
-        pf._composition_ideals(m, m2, m, m, m, m, RW=192, n_shift=24)
-    with pytest.raises(ValueError):
-        pf._span_intersections(m, m2, m, m, SA=1024, n_shift=24)
-    c = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(ValueError):
-        pf._span_intersections(c, m2, c, c, SA=1024, n_shift=24)
-    with pytest.raises(ValueError):
-        pf._window_sketches(m, m, m, m, SQ=160)
-    with pytest.raises(ValueError):
-        pf._window_sketches(c, c, m, c, SQ=160)
 
 
 def bitonic_model(x):
@@ -466,12 +441,14 @@ def bitonic_model(x):
 
 
 def window_sketches_model(q_keys, qws, qwe, lut, SQ):
-    """``csrc/window_sketches.cu`` row by row: the gathered keys (the
-    first SQ of the window, an index past the keys clamped) sorted by the
-    bitonic network over the next power of two above their count, then
-    the warp's compaction, 32 lanes a step: a key is kept where it is not
-    INF and differs from its left neighbour, and lands at the kept keys of
-    the earlier steps plus the kept lanes below it (ballot and popc)."""
+    """The query sketches as ``warp_sketch`` of ``csrc/window_rows.cuh``
+    (which ``csrc/prefilter_intervals.cu`` runs) builds them, row by row:
+    the gathered keys (the first SQ of the window, an index past the keys
+    clamped) sorted by the bitonic network over the next power of two
+    above their count, then the warp's compaction, 32 lanes a step: a key
+    is kept where it is not INF and differs from its left neighbour, and
+    lands at the kept keys of the earlier steps plus the kept lanes below
+    it (ballot and popc)."""
     B = len(qws)
     qk = np.full((B, SQ), pf.INF32, np.int32)
     s_out = np.zeros(B, np.int32)
@@ -499,8 +476,9 @@ def window_sketches_model(q_keys, qws, qwe, lut, SQ):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_window_sketches_model_matches_plain(seed):
-    """The kernel's sort network and ballot compaction against the plain
-    version's two row sorts, on the edge windows, at SQ 160 and 48."""
+    """``warp_sketch``'s sort network and ballot compaction against the
+    plain version's two row sorts, on the edge windows, at SQ 160 and
+    48."""
     q_keys, qws, qwe = _sketch_inputs(seed)
     lut = relaxed_jaccard_table(320, K, DEFAULT).astype(np.int32)
     T = torch.from_numpy
@@ -872,15 +850,20 @@ def test_interval_kernel_model_matches_plain(world, tile):
         assert totals["global_"] > 0
 
 
-def test_interval_wrapper_refuses_other_devices():
+@pytest.mark.parametrize("case", ["meta", "mixed", "rws0_past_loci"])
+def test_interval_wrapper_refuses_other_devices(case):
+    """Keys on a device that is no CPU and no card, keys and plan on two
+    devices, and a plan whose rws0 is past the loci: ``ValueError``."""
     m = torch.zeros(4, dtype=torch.int32, device="meta")
     c = torch.zeros(4, dtype=torch.int32)
     plan = torch.zeros((5, 4), dtype=torch.int32, device="meta")
     kw = dict(L=L, SQ=160, RW=192, SA=1024, n_shift=2 * K)
     with pytest.raises(ValueError):
-        pf._interval_verdicts(m, m, m, m, plan, **kw)
-    with pytest.raises(ValueError):
-        pf._interval_verdicts(c, c, c, c, plan, **kw)
-    prefilter = pf.RollPrefilter(K, np.ones(8, np.int32), L, device="cpu")
-    with pytest.raises(ValueError):  # rws0 past the loci
-        prefilter.dispatch(c, c, c, [0], [4], [0], [9], [0])
+        if case == "meta":
+            pf._interval_verdicts(m, m, m, m, plan, **kw)
+        elif case == "mixed":
+            pf._interval_verdicts(c, c, c, c, plan, **kw)
+        else:
+            prefilter = pf.RollPrefilter(K, np.ones(8, np.int32), L,
+                                         device="cpu")
+            prefilter.dispatch(c, c, c, [0], [4], [0], [9], [0])

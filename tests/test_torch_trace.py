@@ -6,7 +6,9 @@ counters on the paths they time: a pair through ``classify_pair``, an
 ``align_batch`` by route, a region's counts by route, and a genome through
 the CLI's ``pipeline --trace`` on two threads."""
 
+import importlib.util
 import json
+import pathlib
 import random
 import sys
 import threading
@@ -24,6 +26,21 @@ from sedef_tpu_torch.ops import prefilter as pf
 from sedef_tpu_torch.ops import wavefront as wf
 
 torch.set_num_threads(1)
+
+
+def _load_program_reader():
+    """The benchmark's reader of the program's trace
+    (``benchmark/harness/program.py``), loaded by path: its ``totals`` and
+    ``self_totals`` are the sums the benchmark's span metrics read."""
+    path = (pathlib.Path(__file__).resolve().parent.parent / "benchmark"
+            / "harness" / "program.py")
+    spec = importlib.util.spec_from_file_location("_bench_program", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+program = _load_program_reader()
 
 
 @pytest.fixture(autouse=True)
@@ -95,12 +112,11 @@ def test_self_time_is_duration_less_the_union_of_children():
         _span(5, 1, "tail.stats", 9.5, 12.0),      # runs past its parent
         _span(6, 4, "inner", 7.2, 7.4),            # a grandchild
     ]}
-    own = trace.self_times(snap)
-    assert own[1] == pytest.approx(10.0 - (4.0 + 1.0 + 0.5))
-    assert own[4] == pytest.approx(0.8)
-    assert own[6] == pytest.approx(0.2)
-    assert trace.totals(snap)["gapdp.host"] == pytest.approx(5.0)
-    assert trace.self_totals(snap)["region"] == pytest.approx(4.5)
+    own = program.self_totals(snap)
+    assert own["region"] == pytest.approx(10.0 - (4.0 + 1.0 + 0.5))
+    assert own["region.chain"] == pytest.approx(0.8)
+    assert own["inner"] == pytest.approx(0.2)
+    assert program.totals(snap)["gapdp.host"] == pytest.approx(5.0)
 
 
 def test_carried_pool_task_takes_the_submitter_span_as_parent():
@@ -242,13 +258,13 @@ def test_classify_pair_spans_add_up(monkeypatch):
                    for s in spans[name]), name
     assert all(s["attrs"] == {"route": "python"} for s in spans["region"])
     assert "gapdp.card" not in spans
-    own = trace.self_times(snap)
-    for r in spans["region"]:
-        parts = sum(s["t1"] - s["t0"] for s in snap["spans"]
-                    if s["parent"] == r["id"])
-        assert parts + own[r["id"]] == pytest.approx(r["t1"] - r["t0"],
-                                                     abs=1e-9)
-        assert own[r["id"]] >= 0
+    regions = {r["id"] for r in spans["region"]}
+    parts = sum(s["t1"] - s["t0"] for s in snap["spans"]
+                if s["parent"] in regions)
+    own = program.self_totals(snap)["region"]
+    assert parts + own == pytest.approx(program.totals(snap)["region"],
+                                        abs=1e-9)
+    assert own >= 0
 
 
 def _problems():
