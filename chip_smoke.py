@@ -977,6 +977,7 @@ def _floor_crossover(al):
     import numpy as np
 
     from sedef_tpu_torch.native import lib as nlib
+    from sedef_tpu_torch.ops import wavefront as wf
     rng = np.random.default_rng(5)
     rows = []
     for n in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512):
@@ -985,12 +986,12 @@ def _floor_crossover(al):
                  for a, b in rng.integers(96, 129, (n, 2))]
         host_pairs = [(q.astype(np.uint8), t.astype(np.uint8))
                       for q, t in pairs]
-        part = list(range(n))
+        batch, part = wf.GapBatch.of(pairs), np.arange(n)
         card, host = [], []
-        al._solve(pairs, part, 128, 128, 1, None)
+        al._solve(batch, part, 128, 128, 1, None)
         for _ in range(5):
             t0 = time.perf_counter()
-            al._solve(pairs, part, 128, 128, 1, None)
+            al._solve(batch, part, 128, 128, 1, None)
             card.append((time.perf_counter() - t0) * 1e3)
             t0 = time.perf_counter()
             nlib.align_batch(host_pairs, 5, -4, 40, 1)

@@ -113,11 +113,11 @@ def measure_dispatch_ms(device="cuda", reps: int = 7) -> float:
     the synchronising device->host copy, for ``FROZEN_BATCH_MIN`` problems
     (their DP work is negligible).  The first, untimed call builds the
     kernels where that is still to do."""
-    from .ops.wavefront import WavefrontAligner
+    from .ops.wavefront import GapBatch, WavefrontAligner
     al = WavefrontAligner(device=device)
     S = SIZE_CLASSES[0]
-    pairs = _random_pairs(FROZEN_BATCH_MIN, S - 16, S, seed=0)
-    part = list(range(len(pairs)))
+    pairs = GapBatch.of(_random_pairs(FROZEN_BATCH_MIN, S - 16, S, seed=0))
+    part = np.arange(len(pairs))
     al._solve(pairs, part, S, S, 1, None)
     samples = []
     for _ in range(reps):

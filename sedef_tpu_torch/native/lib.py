@@ -432,6 +432,28 @@ def populate(a: bytes, b: bytes, ops: np.ndarray, lens: np.ndarray
             int(counts[0]), int(counts[1]))
 
 
+def align_batch_flat(qbuf: np.ndarray, qoff: np.ndarray, tbuf: np.ndarray,
+                     toff: np.ndarray, match: int, mis: int, gapo: int,
+                     gape: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Batched scalar wavefront DP over problems given as flat arrays:
+    problem i is ``qbuf[qoff[i]:qoff[i + 1]]`` against
+    ``tbuf[toff[i]:toff[i + 1]]`` (uint8 codes, no empty side; the
+    offsets n + 1 int64).  One native round trip; returns the CIGAR runs
+    as arrays: ops (ASCII, uint8), lengths (int32) and runs a problem
+    (int64)."""
+    n = len(qoff) - 1
+    cap = int(qoff[-1] + toff[-1]) + 2 * n + 16
+    ops = np.empty(cap, dtype=np.uint8)
+    lens = np.empty(cap, dtype=np.int32)
+    cnt = np.zeros(n, dtype=np.int64)
+    qbuf, tbuf = (np.ascontiguousarray(b, np.uint8) for b in (qbuf, tbuf))
+    qoff, toff = (np.ascontiguousarray(o, np.int64) for o in (qoff, toff))
+    r = _L().sedef_align_batch(qbuf, qoff, tbuf, toff, n, match, mis, gapo,
+                               gape, ops, lens, cnt, cap)
+    assert r >= 0, r
+    return ops[:r], lens[:r], cnt
+
+
 def align_batch(pairs: list, match: int, mis: int, gapo: int,
                 gape: int) -> list[list[tuple[str, int]]]:
     """Batched scalar wavefront DP: one native round trip for many
@@ -446,21 +468,14 @@ def align_batch(pairs: list, match: int, mis: int, gapo: int,
                            for q, _ in pairs])
     tbuf = np.concatenate([np.asarray(t, dtype=np.uint8)
                            for _, t in pairs])
-    cap = int(qoff[-1] + toff[-1]) + 2 * n + 16
-    ops = np.empty(cap, dtype=np.uint8)
-    lens = np.empty(cap, dtype=np.int32)
-    cnt = np.zeros(n, dtype=np.int64)
-    r = _L().sedef_align_batch(qbuf, qoff, tbuf, toff, n, match, mis,
-                               gapo, gape, ops, lens, cnt, cap)
-    assert r >= 0, r
+    ops, lens, cnt = align_batch_flat(qbuf, qoff, tbuf, toff, match, mis,
+                                      gapo, gape)
     out: list[list[tuple[str, int]]] = []
     pos = 0
     opsl = ops.tolist()
     lensl = lens.tolist()
-    for i in range(n):
-        c = int(cnt[i])
-        out.append([(chr(opsl[j]), lensl[j])
-                    for j in range(pos, pos + c)])
+    for c in cnt.tolist():
+        out.append([(chr(opsl[j]), lensl[j]) for j in range(pos, pos + c)])
         pos += c
     return out
 

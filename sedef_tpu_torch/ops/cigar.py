@@ -15,7 +15,6 @@ CIGAR ops ('M'/'D'/'I'): 'M' consumes both sequences, 'D' consumes only
 
 from __future__ import annotations
 
-import itertools
 import re
 
 import numpy as np
@@ -23,7 +22,7 @@ import torch
 
 from ..config import DEFAULT, Config
 from .dna import encode_align
-from .wavefront import WavefrontAligner
+from .wavefront import GapBatch, WavefrontAligner, cigar_runs
 
 _DASH = ord("-")
 _N = ord("N")
@@ -44,8 +43,7 @@ _default_aligner: WavefrontAligner | None = None
 
 def _gap_jobs(qstr: str, rstr: str, qpe: np.ndarray, rpe: np.ndarray,
               qgap: np.ndarray, rgap: np.ndarray
-              ) -> tuple[np.ndarray, np.ndarray,
-                         list[tuple[np.ndarray, np.ndarray]]]:
+              ) -> tuple[np.ndarray, np.ndarray, GapBatch]:
     """The reference's gap policy (align.cc:126-145) over arrays of gaps
     ``qstr[qpe:qpe + qgap]`` / ``rstr[rpe:rpe + rgap]``: a gap with both
     sides is a DP, of both sides whole where each is at most 1,000 bases,
@@ -54,23 +52,19 @@ def _gap_jobs(qstr: str, rstr: str, qpe: np.ndarray, rpe: np.ndarray,
     are equal), else ``D`` (the reference's ma1/ma2 comparison is a no-op,
     ma1 always wins); a one-sided gap is one indel.  Returns (dp, big,
     jobs): the gaps that take a DP, those that are big, and the DP
-    problems (code views) in gap order."""
+    problems in gap order, a ``GapBatch`` over the two strings' codes."""
     dp = (qgap > 0) & (rgap > 0)
     if not dp.any():
-        return dp, dp, []
+        return dp, dp, GapBatch.of([])
     big = dp & ((qgap > 1000) | (rgap > 1000))
     mi = np.minimum(qgap, rgap)
-    # encode the region once and slice code VIEWS per gap — dozens of
-    # per-substring encodes cost more than two full-region LUT gathers
-    qcodes = encode_align(qstr)
-    rcodes = encode_align(rstr)
     # NOTE: the chunked align_strings path only matters above
     # MAX_KSW_SEQ_LEN = 60 Kbp; double-sided DP jobs here are bounded by
     # MAX_GAP = 10 Kbp (refine) so plain align_batch is equivalent.
-    jobs = [(qcodes[a:a + n], rcodes[b:b + t]) for a, n, b, t in zip(
-        qpe[dp].tolist(), np.where(big, mi, qgap)[dp].tolist(),
-        rpe[dp].tolist(), np.where(big, mi, rgap)[dp].tolist())]
-    return dp, big, jobs
+    # Each string is encoded once; a problem is an offset and a length.
+    return dp, big, GapBatch(encode_align(qstr), encode_align(rstr),
+                             qpe[dp], np.where(big, mi, qgap)[dp],
+                             rpe[dp], np.where(big, mi, rgap)[dp])
 
 
 def _batch_gap_cigars(qstr: str, rstr: str,
@@ -83,7 +77,7 @@ def _batch_gap_cigars(qstr: str, rstr: str,
         return []
     qpe, qs, rpe, rs = np.array(gaps, dtype=np.int64).T
     dp, big, jobs = _gap_jobs(qstr, rstr, qpe, rpe, qs - qpe, rs - rpe)
-    cigars = iter(aligner.align_batch(jobs) if jobs else [])
+    cigars = iter(aligner.align_batch(jobs) if len(jobs) else [])
     out: list[list[tuple[str, int]]] = []
     for qgap, rgap, d, b in zip((qs - qpe).tolist(), (rs - rpe).tolist(),
                                 dp.tolist(), big.tolist()):
@@ -247,14 +241,13 @@ class Alignment:
         qgap, rgap = q[gi] - qpe, r[gi] - rpe
         assert (np.minimum(qgap, rgap) >= 0).all()
         dp, big, jobs = _gap_jobs(qstr, rstr, qpe, rpe, qgap, rgap)
-        cigars = aligner.align_batch(jobs) if jobs else []
+        ndp, fops, flens = cigar_runs(aligner.align_batch(jobs) if len(jobs)
+                                      else [])
 
         # the ops, in order: each anchor's block is the gap before it (its
         # DP's ops and a big gap's indel, or one one-sided indel), then
         # its M run; ``head`` marks the first op of each appended CIGAR
         side = ~dp & ((qgap > 0) | (rgap > 0))
-        ndp = np.fromiter(map(len, cigars), dtype=np.int64,
-                          count=len(cigars))
         gcnt = side.astype(np.int64)
         gcnt[dp] = ndp + big[dp]
         end = np.ones(m, dtype=np.int64)
@@ -272,16 +265,12 @@ class Alignment:
         gs = go[side]
         ops[gs] = np.where(qgap[side] > 0, _D, _I)
         lens[gs] = qgap[side] + rgap[side]
-        if cigars:
-            flat = list(itertools.chain.from_iterable(cigars))
-            if flat:
-                fops, flens = zip(*flat)
-                first = np.cumsum(ndp) - ndp
-                pos = (np.repeat(go[dp] - first, ndp)
-                       + np.arange(len(flat), dtype=np.int64))
-                ops[pos] = np.frombuffer("".join(fops).encode("ascii"),
-                                         dtype=np.uint8)
-                lens[pos] = flens
+        if len(ndp):
+            first = np.cumsum(ndp) - ndp
+            pos = (np.repeat(go[dp] - first, ndp)
+                   + np.arange(len(fops), dtype=np.int64))
+            ops[pos] = fops
+            lens[pos] = flens
             bq, br = qgap[big], rgap[big]
             pos = go[big] + ndp[big[dp]]
             ops[pos] = np.where(bq <= br, _I, _D)

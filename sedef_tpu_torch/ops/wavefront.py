@@ -47,8 +47,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import os
 import threading
+from collections.abc import Sequence
 from typing import NamedTuple
 
 import numpy as np
@@ -1367,16 +1369,225 @@ def cigar_from_packed_ops(packed_row: np.ndarray, qlen: int, tlen: int
                               [tlen])[0]
 
 
-_OP_NAMES = ("M", "I", "D")
+def _offsets(counts: np.ndarray) -> np.ndarray:
+    """(n + 1,) int64: where each of n runs of ``counts`` items starts in
+    their concatenation, and the total last."""
+    out = np.zeros(len(counts) + 1, np.int64)
+    np.cumsum(counts, out=out[1:])
+    return out
+
+
+def _span_index(ln: np.ndarray, first: np.ndarray
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """Spans of lengths ``ln`` concatenated (``first`` is
+    ``_offsets(ln)``): each item's span and its place inside the span."""
+    row = np.repeat(np.arange(len(ln)), ln)
+    return row, np.arange(first[-1]) - first[:-1][row]
+
+
+class GapBatch(Sequence):
+    """A batch of gap DPs as flat arrays: problem i is the code views
+    ``(q[qo[i]:qo[i] + ql[i]], t[to[i]:to[i] + tl[i]])``.  ``len``,
+    indexing and iteration give those ``(q, t)`` pairs, as a list of
+    pairs does; ``WavefrontAligner.align_batch`` takes either form and
+    reads this one without a step per problem."""
+
+    __slots__ = ("q", "t", "qo", "ql", "to", "tl")
+
+    def __init__(self, q: np.ndarray, t: np.ndarray, qo, ql, to, tl):
+        self.q, self.t = q, t
+        self.qo, self.ql, self.to, self.tl = (
+            np.asarray(a, np.int64) for a in (qo, ql, to, tl))
+
+    @classmethod
+    def of(cls, pairs) -> "GapBatch":
+        """A list of (query, target) code arrays as one batch: one
+        concatenation a side."""
+        if isinstance(pairs, GapBatch):
+            return pairs
+        qs = [np.asarray(q) for q, _ in pairs]
+        ts = [np.asarray(t) for _, t in pairs]
+        ql = np.fromiter(map(len, qs), np.int64, len(qs))
+        tl = np.fromiter(map(len, ts), np.int64, len(ts))
+        empty = np.zeros(0, np.uint8)
+        return cls(np.concatenate(qs) if qs else empty,
+                   np.concatenate(ts) if ts else empty,
+                   _offsets(ql)[:-1], ql, _offsets(tl)[:-1], tl)
+
+    @classmethod
+    def join(cls, batches) -> "GapBatch":
+        """One batch of ``batches``' problems in order (each a batch or a
+        list of pairs), over their problems' codes alone, concatenated."""
+        bs = [cls.of(b) for b in batches]
+        sides = []
+        for side in (0, 1):
+            codes = [b.codes(np.arange(len(b)), side) for b in bs]
+            shift = _offsets([len(c) for c, _ in codes])
+            sides.append((np.concatenate([c for c, _ in codes]),
+                          np.concatenate([f[:-1] + s for (_, f), s
+                                          in zip(codes, shift)])))
+        (q, qo), (t, to) = sides
+        return cls(q, t, qo, np.concatenate([b.ql for b in bs]), to,
+                   np.concatenate([b.tl for b in bs]))
+
+    def __len__(self) -> int:
+        return len(self.ql)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return GapBatch(self.q, self.t, self.qo[i], self.ql[i],
+                            self.to[i], self.tl[i])
+        qo, ql = int(self.qo[i]), int(self.ql[i])
+        to, tl = int(self.to[i]), int(self.tl[i])
+        return self.q[qo:qo + ql], self.t[to:to + tl]
+
+    def __iter__(self):
+        q, t = self.q, self.t
+        for qo, ql, to, tl in zip(self.qo.tolist(), self.ql.tolist(),
+                                  self.to.tolist(), self.tl.tolist()):
+            yield q[qo:qo + ql], t[to:to + tl]
+
+    def _side(self, side: int):
+        return ((self.q, self.qo, self.ql) if side == 0
+                else (self.t, self.to, self.tl))
+
+    def codes(self, idx: np.ndarray, side: int
+              ) -> tuple[np.ndarray, np.ndarray]:
+        """Problems ``idx``' codes of one side (0 query, 1 target)
+        concatenated as uint8, and where each starts (``_offsets`` of
+        their lengths)."""
+        codes, off, ln = self._side(side)
+        first = _offsets(ln[idx])
+        row, pos = _span_index(ln[idx], first)
+        return codes.take(off[idx][row] + pos).astype(np.uint8), first
+
+    def pad(self, idx: np.ndarray, side: int, B: int, S: int) -> np.ndarray:
+        """(B, S) int8: row b the codes of one side of problem idx[b],
+        wildcard padded, rows past len(idx) all wildcard: a gather of
+        S-code windows of the codes (of a wildcard-padded copy of their
+        end where a window runs past it), then the padding."""
+        codes, off, ln = self._side(side)
+        o, n = off[idx], len(codes)
+        if n < S or o.max() > n - S:
+            lo = min(int(o.min()), max(n - S, 0))
+            codes = np.concatenate([codes[lo:].astype(np.int8, copy=False),
+                                    np.full(S, WILDCARD, np.int8)])
+            o, n = o - lo, len(codes)
+        codes = np.ascontiguousarray(codes)
+        step = codes.itemsize
+        out = np.full((B, S), WILDCARD, np.int8)
+        rows = out[:len(idx)]
+        # row i of the view: the S codes from i on
+        rows[:] = np.ndarray((n - S + 1, S), codes.dtype, codes,
+                             strides=(step, step))[o]
+        rows[np.arange(S, dtype=np.int32)
+             >= ln[idx].astype(np.int32)[:, None]] = WILDCARD
+        return out
+
+
+# the ASCII codes of the walker's moves 0 M, 1 I, 2 D
+_OP_ASCII = np.frombuffer(b"MID", np.uint8)
 # a byte's four 2-bit codes, low bits first
 _UNPACK = (np.arange(256, dtype=np.uint8)[:, None]
            >> np.array([0, 2, 4, 6], np.uint8)) & 3
 
 
-def cigars_from_packed(ops: np.ndarray, ql, tl
-                       ) -> list[list[tuple[str, int]]]:
+class CigarBatch(Sequence):
+    """The CIGARs of a batch of gap DPs as three arrays: the runs' ops
+    (ASCII ``M``, ``I``, ``D``, uint8) and lengths (int32), and where
+    each problem's runs start (``first``, n + 1 int64, ``first[0]`` 0).
+    ``len``, indexing and iteration give each problem's CIGAR as the list
+    of ``(op, length)`` tuples ``align_batch`` has always returned, built
+    when read; a slice is the batch of those problems, and a batch equals
+    the list of its CIGARs."""
+
+    __slots__ = ("ops", "lens", "first")
+
+    def __init__(self, ops: np.ndarray, lens: np.ndarray, first: np.ndarray):
+        self.ops, self.lens, self.first = ops, lens, first
+
+    @classmethod
+    def scatter(cls, n: int, parts) -> "CigarBatch":
+        """The batch of n problems from ``parts``, (problem indices, their
+        ``CigarBatch``) pairs that cover the n problems once: one scatter
+        a part (none where one part holds the n in order)."""
+        if len(parts) == 1 and np.array_equal(parts[0][0], np.arange(n)):
+            return parts[0][1]
+        cnt = np.zeros(n, np.int64)
+        for idx, c in parts:
+            cnt[idx] = np.diff(c.first)
+        first = _offsets(cnt)
+        ops = np.empty(first[-1], np.uint8)
+        lens = np.empty(first[-1], np.int32)
+        for idx, c in parts:
+            row, pos = _span_index(np.diff(c.first), c.first)
+            at = first[:-1][idx][row] + pos
+            ops[at] = c.ops
+            lens[at] = c.lens
+        return cls(ops, lens, first)
+
+    def __len__(self) -> int:
+        return len(self.first) - 1
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            a, b, step = i.indices(len(self))
+            if step != 1:
+                return [self[k] for k in range(a, b, step)]
+            b = max(a, b)
+            lo, hi = int(self.first[a]), int(self.first[b])
+            return CigarBatch(self.ops[lo:hi], self.lens[lo:hi],
+                              self.first[a:b + 1] - lo)
+        i = range(len(self))[i]
+        lo, hi = int(self.first[i]), int(self.first[i + 1])
+        return list(zip(self.ops[lo:hi].tobytes().decode("ascii"),
+                        self.lens[lo:hi].tolist()))
+
+    def __iter__(self):
+        ops = self.ops.tobytes().decode("ascii")
+        lens = self.lens.tolist()
+        first = self.first.tolist()
+        for lo, hi in zip(first, first[1:]):
+            yield list(zip(ops[lo:hi], lens[lo:hi]))
+
+    def __eq__(self, other):
+        if isinstance(other, CigarBatch):
+            return (np.array_equal(self.first, other.first)
+                    and np.array_equal(self.ops, other.ops)
+                    and np.array_equal(self.lens, other.lens))
+        if isinstance(other, list):
+            return len(self) == len(other) and all(
+                a == b for a, b in zip(self, other))
+        return NotImplemented
+
+    def __add__(self, other):
+        return list(self) + list(other)
+
+    def __radd__(self, other):
+        return list(other) + list(self)
+
+    def __repr__(self) -> str:
+        return f"CigarBatch({list(self)!r})"
+
+
+def cigar_runs(cigars) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(runs a problem, ops, lengths) of a batch's CIGARs as arrays: a
+    ``CigarBatch``'s own, or a list of CIGARs flattened."""
+    if isinstance(cigars, CigarBatch):
+        return np.diff(cigars.first), cigars.ops, cigars.lens
+    cnt = np.fromiter(map(len, cigars), np.int64, len(cigars))
+    flat = list(itertools.chain.from_iterable(cigars))
+    if not flat:
+        return cnt, np.zeros(0, np.uint8), np.zeros(0, np.int32)
+    ops, lens = zip(*flat)
+    return (cnt, np.frombuffer("".join(ops).encode("ascii"), np.uint8),
+            np.array(lens, np.int32))
+
+
+def cigars_from_packed(ops: np.ndarray, ql, tl) -> CigarBatch:
     """Decode a launch group's packed ops (B, ceil(n_diag / 4)) uint8 and
-    its (B,) lengths into B CIGARs, in one pass of array operations.
+    its (B,) lengths into the ``CigarBatch`` of its B CIGARs, in one pass
+    of array operations.
 
     Code r of a row (byte r / 4, bits 2 * (r % 4)) is the walker's move on
     anti-diagonal r: 0 M, 1 I, 2 D, 3 none; codes at r >= ql + tl - 1 are
@@ -1388,34 +1599,47 @@ def cigars_from_packed(ops: np.ndarray, ql, tl
     B, n_bytes = ops.shape
     ql = np.asarray(ql, np.int64)
     tl = np.asarray(tl, np.int64)
-    # each row: its D residual (column 0), its I residual (1), its moves
-    W = 4 * n_bytes + 2
-    codes = np.empty((B, W), np.uint8)
-    codes[:, 0] = 2
-    codes[:, 1] = 1
-    codes[:, 2:] = _UNPACK.take(ops, axis=0).reshape(B, W - 2)
+    W = 4 * n_bytes
+    codes = _UNPACK.take(ops, axis=0).reshape(B, W)
     keep = codes != 3
-    keep[:, 2:] &= np.arange(W - 2) < (ql + tl - 1)[:, None]
+    keep &= (np.arange(W, dtype=np.int32)
+             < (ql + tl - 1).astype(np.int32)[:, None])
     at = np.flatnonzero(keep)
-    rows = at // W
-    cols = at - rows * W
     vals = codes.ravel().take(at)
-    # M, I and D a row, each I and D one more for the residual entries
-    n = np.bincount(rows * 3 + vals, minlength=3 * B).reshape(B, 3)
-    weight = np.ones(len(at), np.int64)
-    weight[cols == 0] = np.maximum(ql - n[:, 0] - n[:, 2] + 1, 0)
-    weight[cols == 1] = np.maximum(tl - n[:, 0] - n[:, 1] + 1, 0)
-    live = weight > 0
-    vals, rows, weight = vals[live], rows[live], weight[live]
-    # a run starts where the op or the problem changes
-    start = np.ones(len(vals), bool)
-    start[1:] = (vals[1:] != vals[:-1]) | (rows[1:] != rows[:-1])
+    # the moves' runs: a run starts where the op or the row changes (each
+    # row's first move in ``at``; a row without moves has the next's)
+    row_at = np.searchsorted(at, np.arange(B) * W)
+    start = np.empty(len(at), bool)
+    start[:1] = True
+    np.not_equal(vals[1:], vals[:-1], out=start[1:])
+    start[row_at[row_at < len(at)]] = True
+    run = np.flatnonzero(start)
+    rop = vals[run]
+    rlen = np.diff(run, append=len(at))
+    rrow = np.searchsorted(row_at, run, "right") - 1
+    # each row: its D residual, its I residual, its moves' runs; then the
+    # empty runs out and the runs of one op in a row merged
+    n = np.bincount(rrow * 3 + rop, weights=rlen, minlength=3 * B
+                    ).reshape(B, 3).astype(np.int64)
+    per_row = np.bincount(rrow, minlength=B) + 2
+    at_row = _offsets(per_row)[:-1]
+    aop = np.empty(len(run) + 2 * B, np.uint8)
+    alen = np.empty(len(aop), np.int64)
+    aop[at_row], aop[at_row + 1] = 2, 1
+    alen[at_row] = np.maximum(ql - n[:, 0] - n[:, 2], 0)
+    alen[at_row + 1] = np.maximum(tl - n[:, 0] - n[:, 1], 0)
+    moves = np.arange(len(run)) + 2 * (rrow + 1)
+    aop[moves], alen[moves] = rop, rlen
+    live = np.flatnonzero(alen)
+    arow = np.repeat(np.arange(B), per_row)[live]
+    aop, alen = aop[live], alen[live]
+    start = np.ones(len(aop), bool)
+    start[1:] = (aop[1:] != aop[:-1]) | (arow[1:] != arow[:-1])
     first = np.flatnonzero(start)
-    bounds = np.searchsorted(rows[first], np.arange(B + 1)).tolist()
-    runs = list(zip(map(_OP_NAMES.__getitem__, vals[first].tolist()),
-                    np.add.reduceat(weight, first).tolist()))
-    GAPDP.add("decode.runs", len(runs))
-    return [runs[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    GAPDP.add("decode.runs", len(first))
+    return CigarBatch(_OP_ASCII[aop[first]],
+                      np.add.reduceat(alen, first).astype(np.int32),
+                      np.searchsorted(arow[first], np.arange(B + 1)))
 
 
 SIZE_CLASSES = (128, 256, 512, 1024, 2048)
@@ -1430,12 +1654,13 @@ def _route(K: int, tile: int | None) -> str:
 
 # the gap-DP router's counts, each added once an ``align_batch`` call:
 # problems and cells (ql x tl, as ``device_cells`` counts them, without
-# the padding problems of whole streams) by route, and launch groups by
-# route; and the CIGAR runs ``cigars_from_packed`` emitted, added once a
-# call
+# the padding problems of whole streams) by route, launch groups by
+# route, and the problems of calls given a ``GapBatch``; and the CIGAR
+# runs ``cigars_from_packed`` emitted, added once a call
 GAPDP = trace.Counters("gapdp", (
     "problems.degenerate", "problems.host", "problems.card", "cells.host",
-    "cells.card", *(f"groups.{r}" for r in ROUTES), "decode.runs"))
+    "cells.card", *(f"groups.{r}" for r in ROUTES), "flat.problems",
+    "decode.runs"))
 # rounds the coalescing aligners dispatched
 COALESCE = trace.Counters("coalesce", ("rounds",))
 # the aligner's uncalibrated batch floors (problems, DP cells)
@@ -1443,11 +1668,19 @@ FROZEN_BATCH_MIN = 8
 FROZEN_BATCH_MIN_CELLS = 1 << 21
 
 
-def _pad_to_class(n: int) -> int:
-    for s in SIZE_CLASSES:
-        if n <= s:
-            return s
-    return ((n + 2047) // 2048) * 2048
+_CLASSES = np.array(SIZE_CLASSES)
+
+
+def _pad_to_class(n):
+    """The size class of a length ``n`` (an int, or each of an int
+    array): the smallest of SIZE_CLASSES that holds it, past the largest
+    a multiple of 2048."""
+    n = np.asarray(n, np.int64)
+    top = _CLASSES[-1]
+    out = np.where(n <= top,
+                   _CLASSES[np.searchsorted(_CLASSES, np.minimum(n, top))],
+                   (n + 2047) // 2048 * 2048)
+    return out if out.ndim else int(out)
 
 
 def _as_device(device) -> torch.device:
@@ -1540,98 +1773,107 @@ class WavefrontAligner:
     P_BUDGET_BYTES = 8 << 30
     TILE_BUDGET_BYTES = 4 << 30
 
-    def align_batch(self, pairs: list[tuple[np.ndarray, np.ndarray]]
-                    ) -> list[list[tuple[str, int]]]:
-        """Align many (query, target) code pairs.
+    def align_batch(self,
+                    pairs: GapBatch | list[tuple[np.ndarray, np.ndarray]]
+                    ) -> CigarBatch:
+        """Align many (query, target) code pairs, given as a ``GapBatch``
+        or a list of pairs; returns their CIGARs as a ``CigarBatch``.
 
         Degenerate problems get their trivial CIGAR; bulk batches and
         giant problems go to ``self.device`` per size class; stragglers go
         to the native C++ scalar DP (everything goes to the device when
-        the native library is unavailable)."""
-        results: list[list[tuple[str, int]] | None] = [None] * len(pairs)
+        the native library is unavailable).  The routing is masks over
+        the batch's length arrays."""
+        flat = isinstance(pairs, GapBatch)
+        batch = GapBatch.of(pairs)
         from ..native import lib as _nlib
         native = _nlib if _nlib.has("align") else None
         giant = (self.GIANT_CELLS if self.device.type == "cuda"
                  else self.NATIVE_MAX_CELLS)
-        device_idx = []
-        native_idx = []
-        for idx, (qc, tc) in enumerate(pairs):
-            cells = (len(qc) + len(tc)) * max(len(tc), 1)
-            if len(qc) == 0 or len(tc) == 0:
-                results[idx] = _degenerate_cigar(len(qc), len(tc))
-            elif native is None or cells > giant:
-                device_idx.append(idx)
-            else:
-                native_idx.append(idx)
-        if len(native_idx) >= self.DEVICE_BATCH_MIN:
-            bulk_cells = sum(len(pairs[i][0]) * len(pairs[i][1])
-                             for i in native_idx)
-            if bulk_cells >= self.DEVICE_BATCH_MIN_CELLS:
-                device_idx += native_idx
-                native_idx = []
+        ql, tl = batch.ql, batch.tl
+        cells = ql * tl
+        live = (ql > 0) & (tl > 0)
+        big = (ql + tl) * np.maximum(tl, 1) > giant
+        host = live & ~big & (native is not None)
+        device_idx = np.flatnonzero(live & ~host)
+        native_idx = np.flatnonzero(host)
+        if (len(native_idx) >= self.DEVICE_BATCH_MIN
+                and cells[native_idx].sum() >= self.DEVICE_BATCH_MIN_CELLS):
+            device_idx = np.concatenate([device_idx, native_idx])
+            native_idx = native_idx[:0]
+        dead = np.flatnonzero(~live)
+        parts = [(dead, _degenerate_cigars(ql[dead], tl[dead]))
+                 ] if len(dead) else []
         groups = dict.fromkeys(ROUTES, 0)
-        if native_idx:
+        if len(native_idx):
             with trace.span("gapdp.host"):
-                self._align_native(native, pairs, native_idx, results)
-        if device_idx:
+                parts.append((native_idx,
+                              self._align_native(native, batch, native_idx)))
+        if len(device_idx):
             with trace.span("gapdp.card"):
-                self._align_device(pairs, device_idx, results, groups)
+                parts += self._align_device(batch, device_idx, groups)
         GAPDP.update({
-            "problems.degenerate": len(pairs) - len(native_idx)
-            - len(device_idx),
+            "problems.degenerate": len(dead),
             "problems.host": len(native_idx),
             "problems.card": len(device_idx),
-            "cells.host": sum(len(pairs[i][0]) * len(pairs[i][1])
-                              for i in native_idx),
-            "cells.card": sum(len(pairs[i][0]) * len(pairs[i][1])
-                              for i in device_idx),
-            **{f"groups.{r}": n for r, n in groups.items()}})
-        return results
+            "cells.host": int(cells[native_idx].sum()),
+            "cells.card": int(cells[device_idx].sum()),
+            **{f"groups.{r}": n for r, n in groups.items()},
+            "flat.problems": len(batch) if flat else 0})
+        return CigarBatch.scatter(len(batch), parts)
 
-    def _align_native(self, native, pairs, idxs: list[int], results) -> None:
+    def _align_native(self, native, batch: GapBatch, idxs: np.ndarray
+                      ) -> CigarBatch:
         """The native scalar DP on the host: one ctypes round trip for
         the whole small-DP set."""
-        sub = [(pairs[i][0].astype(np.uint8), pairs[i][1].astype(np.uint8))
-               for i in idxs]
-        for i, cig in zip(idxs, native.align_batch(
-                sub, self.match, self.mis, self.gapo, self.gape)):
-            results[i] = cig
+        qbuf, qoff = batch.codes(idxs, 0)
+        tbuf, toff = batch.codes(idxs, 1)
+        ops, lens, cnt = native.align_batch_flat(
+            qbuf, qoff, tbuf, toff, self.match, self.mis, self.gapo,
+            self.gape)
+        return CigarBatch(ops, lens, _offsets(cnt))
 
-    def _align_device(self, pairs, idxs: list[int], results,
-                      routes: dict[str, int]) -> None:
+    def _align_device(self, batch: GapBatch, idxs: np.ndarray,
+                      routes: dict[str, int]
+                      ) -> list[tuple[np.ndarray, CigarBatch]]:
         """Fill + traceback on ``self.device``, grouped per (S_q, S_t) size
-        class, each class on its route (see GIANT_S_T above); ``routes``
-        counts the launch groups by route."""
-        groups: dict[tuple[int, int], list[int]] = {}
-        for idx in idxs:
-            qc, tc = pairs[idx]
-            key = (_pad_to_class(len(qc)), _pad_to_class(len(tc)))
-            groups.setdefault(key, []).append(idx)
+        class in the order the classes first occur in ``idxs``, each class
+        on its route (see GIANT_S_T above); ``routes`` counts the launch
+        groups by route.  Returns each launch group's problems and
+        CIGARs."""
+        S_q = _pad_to_class(batch.ql[idxs])
+        S_t = _pad_to_class(batch.tl[idxs])
+        _, seen, cls = np.unique(S_q << 32 | S_t, return_index=True,
+                                 return_inverse=True)
+        rank = np.empty(len(seen), np.int64)
+        rank[np.argsort(seen)] = np.arange(len(seen))
+        order = np.argsort(rank[cls.ravel()], kind="stable")
+        ends = _offsets(np.bincount(rank[cls.ravel()]))
         from ..debug import dprn
-        for (S_q, S_t), g in groups.items():
-            dprn("[aligner] class ({}, {}): {} problems", S_q, S_t, len(g))
-            if S_t > self.GIANT_S_T or (S_q + S_t) * S_t > self.GIANT_P_BYTES:
-                parts = self.tiled_parts(g, S_q, S_t)
-            elif (S_t >= self.STREAM_MIN_S_T
-                  and len(g) > self.STREAM_MIN_PROBLEMS):
+        out = []
+        for a, b in zip(ends[:-1].tolist(), ends[1:].tolist()):
+            g = idxs[order[a:b]]
+            Sq, St = int(S_q[order[a]]), int(S_t[order[a]])
+            dprn("[aligner] class ({}, {}): {} problems", Sq, St, len(g))
+            if St > self.GIANT_S_T or (Sq + St) * St > self.GIANT_P_BYTES:
+                parts = self.tiled_parts(g, Sq, St)
+            elif St >= self.STREAM_MIN_S_T and len(g) > self.STREAM_MIN_PROBLEMS:
                 K = self.stream_k(len(g))
-                per_stream = _stream_rows(S_q, S_t, K) * S_t
+                per_stream = _stream_rows(Sq, St, K) * St
                 cap = max(1, self.P_BUDGET_BYTES // per_stream) * K
                 parts = [(g[o:o + cap], K, None)
                          for o in range(0, len(g), cap)]
             else:
-                cap = max(1, self.P_BUDGET_BYTES // ((S_q + S_t - 1) * S_t))
+                cap = max(1, self.P_BUDGET_BYTES // ((Sq + St - 1) * St))
                 parts = [(g[o:o + cap], 1, None)
                          for o in range(0, len(g), cap)]
             for part, K, tile in parts:
                 routes[_route(K, tile)] += 1
-                ops = self._solve(pairs, part, S_q, S_t, K, tile)
+                ops = self._solve(batch, part, Sq, St, K, tile)
                 with trace.span("gapdp.card.decode"):
-                    for idx, cig in zip(part, cigars_from_packed(
-                            ops[:len(part)],
-                            [len(pairs[i][0]) for i in part],
-                            [len(pairs[i][1]) for i in part])):
-                        results[idx] = cig
+                    out.append((part, cigars_from_packed(
+                        ops[:len(part)], batch.ql[part], batch.tl[part])))
+        return out
 
     def stream_k(self, n: int) -> int:
         """Problems per stream for a streamed class of n problems."""
@@ -1655,25 +1897,22 @@ class WavefrontAligner:
         cap = max(1, self.TILE_BUDGET_BYTES // (tile * S_t))
         return [(g[o:o + cap], 1, tile) for o in range(0, len(g), cap)]
 
-    def _solve(self, pairs, part: list[int], S_q: int, S_t: int, K: int,
-               tile: int | None) -> np.ndarray:
-        """One launch group: packed ops (len(part), ceil(n_diag / 4)).
+    def _solve(self, batch: GapBatch, part: np.ndarray, S_q: int, S_t: int,
+               K: int, tile: int | None) -> np.ndarray:
+        """One launch group, the problems ``part`` of ``batch``: packed
+        ops (len(part), ceil(n_diag / 4)).
 
         ``tile`` None: the direct (K = 1) or streamed fill, then the
         traceback.  Otherwise the tiled route, streamed when K > 1.  The
         batch is padded to whole streams with ql = tl = 1 problems."""
         B = -(-len(part) // K) * K
         with trace.span("gapdp.card.pack"):
-            qseq = np.full((B, S_q), WILDCARD, dtype=np.int8)
-            tgts = np.full((B, S_t), WILDCARD, dtype=np.int8)
+            qseq = batch.pad(part, 0, B, S_q)
+            tgts = batch.pad(part, 1, B, S_t)
             ql = np.ones(B, np.int32)
             tl = np.ones(B, np.int32)
-            for bi, idx in enumerate(part):
-                qc, tc = pairs[idx]
-                qseq[bi, :len(qc)] = qc
-                tgts[bi, :len(tc)] = tc
-                ql[bi] = len(qc)
-                tl[bi] = len(tc)
+            ql[:len(part)] = batch.ql[part]
+            tl[:len(part)] = batch.tl[part]
         dev = self.device
         sc = (self.match, self.mis, self.gapo, self.gape)
         with self._lock:
@@ -1807,8 +2046,8 @@ class CoalescingAligner:
                 if not batch:
                     break
                 COALESCE.add("rounds")
-                union = [p for r in batch for p in r[0]]
-                results = self.base.align_batch(union)
+                results = self.base.align_batch(
+                    GapBatch.join([r[0] for r in batch]))
                 with self._cv:
                     i = 0
                     for r in batch:
@@ -1829,10 +2068,11 @@ class CoalescingAligner:
         return self.base.align_strings(a, b)
 
 
-def _degenerate_cigar(qlen: int, tlen: int) -> list[tuple[str, int]]:
-    out = []
-    if qlen:
-        out.append(("D", qlen))
-    if tlen:
-        out.append(("I", tlen))
-    return out
+def _degenerate_cigars(ql: np.ndarray, tl: np.ndarray) -> CigarBatch:
+    """The CIGARs of problems with an empty side: ``D`` of the query,
+    then ``I`` of the target, each where it is not empty."""
+    lens = np.stack([ql, tl], axis=1)
+    keep = lens > 0
+    ops = np.broadcast_to(np.frombuffer(b"DI", np.uint8), lens.shape)
+    return CigarBatch(ops[keep], lens[keep].astype(np.int32),
+                      _offsets(keep.sum(axis=1)))

@@ -252,12 +252,11 @@ class MeshAligner:
         groups: dict[tuple[int, int], list[int]] = {}
         small: list[int] = []
         for idx, (qc, tc) in enumerate(pairs):
-            if len(qc) == 0 or len(tc) == 0:
-                results[idx] = wf._degenerate_cigar(len(qc), len(tc))
-                continue
             S_q = wf._pad_to_class(len(qc))
             S_t = wf._pad_to_class(len(tc))
-            if S_t > self.base.GIANT_S_T or len(pairs) < 2 * self.ndev:
+            # the base's routes take degenerate problems too
+            if (not len(qc) or not len(tc) or S_t > self.base.GIANT_S_T
+                    or len(pairs) < 2 * self.ndev):
                 small.append(idx)
                 continue
             groups.setdefault((S_q, S_t), []).append(idx)
@@ -277,13 +276,15 @@ class MeshAligner:
                 work[d] += [(shard[o:o + cap], S_q, S_t)
                             for o in range(0, len(shard), cap)]
 
+        batch = wf.GapBatch.of(pairs)
+
         def solve(d: int) -> None:
             al = self.aligners[d]
             for part, S_q, S_t in work[d]:
-                ops = al._solve(pairs, part, S_q, S_t, 1, None)
-                for idx, cig in zip(part, wf.cigars_from_packed(
-                        ops, [len(pairs[i][0]) for i in part],
-                        [len(pairs[i][1]) for i in part])):
+                part = np.asarray(part)
+                ops = al._solve(batch, part, S_q, S_t, 1, None)
+                for idx, cig in zip(part.tolist(), wf.cigars_from_packed(
+                        ops, batch.ql[part], batch.tl[part])):
                     results[idx] = cig
 
         def run(d: int) -> None:

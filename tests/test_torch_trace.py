@@ -280,7 +280,8 @@ def _problems():
 def test_gapdp_counters_by_route():
     """The router's counts equal the batch's problems and ql x tl cells,
     by route: host stragglers and degenerate problems at the frozen
-    floors, the device route with both floors lowered."""
+    floors, the device route with both floors lowered; ``flat.problems``
+    counts a ``GapBatch``'s problems and no list's."""
     pairs, cells = _problems()
     al = wf.WavefrontAligner(device="cpu")
     trace.enable()
@@ -290,6 +291,13 @@ def test_gapdp_counters_by_route():
     assert c["cells.host"] == cells
     assert c["problems.card"] == c["cells.card"] == 0
     assert all(c[f"groups.{r}"] == 0 for r in wf.ROUTES)
+    assert c["flat.problems"] == 0
+    # the same batch as flat arrays: the same counts, all of it flat
+    wf.GAPDP.reset()
+    trace.disable()
+    assert al.align_batch(wf.GapBatch.of(pairs)) == host
+    assert wf.GAPDP.snapshot() == dict(c, **{"flat.problems": 6})
+    trace.enable()
     wf.GAPDP.reset()
     al.DEVICE_BATCH_MIN = 1
     al.DEVICE_BATCH_MIN_CELLS = 0
@@ -298,6 +306,7 @@ def test_gapdp_counters_by_route():
     c = wf.GAPDP.snapshot()
     assert c["problems.degenerate"] == 2 and c["problems.card"] == 4
     assert c["cells.card"] == cells and c["cells.host"] == 0
+    assert c["flat.problems"] == 0
     # (128, 128) holds three problems, (256, 128) the fourth
     assert c["groups.direct"] == 2 == al.device_batches
     assert sum(c[f"groups.{r}"] for r in wf.ROUTES) == 2
